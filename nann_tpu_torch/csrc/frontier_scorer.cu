@@ -1,10 +1,12 @@
 // Frontier scorer for NVIDIA Hopper (sm_90a): gather + folded NANN scorer.
 //
-// Replaces the TPU kernel `_score_kernel` built by
-// `make_pallas_frontier_scorer` (nann_tpu/experimental/pallas_scorer.py:47-81,
-// pallas_call at :159), and also does the row gather that the Pallas kernel
-// leaves to XLA (nann_tpu/search/beam.py:460). For every (query b, frontier
-// row f) it computes, from the item row e = table[clip(ids[b,f])]:
+// Replaces the TPU kernels built by `make_pallas_frontier_scorer`
+// (nann_tpu/experimental/pallas_scorer.py, pallas_call at :159):
+// `_score_kernel` (:47-81) on rows of the compute type T, and
+// `_score_kernel_int8` (:84-89, dequantization at :52-56) on a packed int8
+// table. It also does the row gather that the Pallas kernels leave to XLA
+// (nann_tpu/search/beam.py:460). For every (query b, frontier row f) it
+// computes, from the item row e = table[clip(ids[b,f])]:
 //
 //   q   = PReLU(e @ q1_k + q1_b) @ q2_k + q2_b
 //   w   = softmax(q @ k_proj[b]^T / sqrt(DK))     over exactly L keys
@@ -16,12 +18,24 @@
 // (nann_tpu_torch/ops/scorer_kernel.py: score_frontier_reference): each
 // layer's output is rounded to the compute type T, sums are float32.
 //
+// Storage is the second template axis. A packed int8 row (index/quantize.py)
+// is D int8 values followed by the row's float32 scale s in bytes D..D+3,
+// D + 4 bytes in all (68 at D = 64, against 128 for a bf16 row), and
+// e[c] = round_T(float(q[c]) * s): one float32 product, one rounding, as
+// `dequantize_rows` does, never fused into the first layer. The Pallas
+// kernel always dequantizes to bf16 (pallas_scorer.py:112); this one, like
+// the JAX main path (beam.py:459-463), dequantizes to the compute type.
+// Rows are read as char4 and the scale as one aligned 4-byte load per row
+// (D % 4 == 0 and a 4-byte aligned table, checked on the host): rows of 68
+// bytes are not 16-byte aligned, so no wider load is used.
+//
 // Bound on an H100: per scored row the chain is about
 // 2*(64*128 + 128*256 + 256*L + L*64 + 128*128 + 128*64 + 64*32 + 32)
-// = 167 kFLOP at L = 50, against 128 bytes of bf16 row plus 9 bytes of id,
-// mask and score: about 1,200 FLOP per byte, far above the card's
-// ~295 FLOP/byte balance point, so the work is compute-bound and its least
-// time is FLOPs / 989 TFLOP/s (bf16 tensor cores).
+// = 167 kFLOP at L = 50, against 128 bytes of bf16 row (68 packed int8) plus
+// 9 bytes of id, mask and score: over 1,200 FLOP per byte, far above the
+// card's ~295 FLOP/byte balance point, so the work is compute-bound and its
+// least time is FLOPs / 989 TFLOP/s (bf16 tensor cores); the int8 storage
+// changes the bytes, not the bound.
 //
 // Design (the first, simple version; tensor cores come later): one block of
 // 256 threads scores ROWS = 32 rows of one query. The query's k_proj and v are
@@ -41,6 +55,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 // Mirrors FrontierScorerArgs in nann_tpu_torch/kernels/frontier_scorer.py.
@@ -49,7 +64,7 @@
 struct NannScorerArgs {
   const int32_t* ids;    // [B, F]
   const uint8_t* valid;  // [B, F] (bool)
-  const void* table;     // [n_rows, D], type T
+  const void* table;     // [n_rows, D] of T, or packed int8 [n_rows, D+4]
   const void* k_proj;    // [B, L, DK], type T
   const void* v;         // [B, L, DU], type T
   const void* q1_k;      // [D, H1], type T
@@ -75,7 +90,8 @@ struct NannScorerArgs {
   float* out;            // [B, F]
   int64_t n_rows;
   int B, F, L, D, H1, DK, DU, G1, G2, G3;
-  int dtype;             // 0 = float32, 1 = bfloat16
+  int dtype;             // compute type T: 0 = float32, 1 = bfloat16
+  int storage;           // 0 = rows of T, 1 = packed int8 rows
 };
 
 namespace {
@@ -168,7 +184,13 @@ __device__ void head_layer(const float* X, int xs, int K, const void* W, int N,
        });
 }
 
-template <typename T>
+__device__ __forceinline__ int64_t clip_id(const NannScorerArgs& a, int b,
+                                           int f) {
+  const int64_t id = f < a.F ? a.ids[(int64_t)b * a.F + f] : 0;
+  return id < 0 ? 0 : (id >= a.n_rows ? a.n_rows - 1 : id);
+}
+
+template <typename T, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 frontier_scorer_kernel(const NannScorerArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -192,17 +214,37 @@ frontier_scorer_kernel(const NannScorerArgs a) {
   float* Vs = Ks + a.L * KS;    // [L, DU]
   float* S = Vs + a.L * a.DU;   // [kRows, L]
 
-  const T* table = static_cast<const T*>(a.table);
   const T* kp = static_cast<const T*>(a.k_proj) + (int64_t)b * a.L * a.DK;
   const T* vv = static_cast<const T*>(a.v) + (int64_t)b * a.L * a.DU;
 
   // gather: e rows into X[:, DU:]; ids are clipped like the plain version
-  for (int i = tid; i < kRows * a.D; i += kThreads) {
-    const int r = i / a.D, c = i % a.D;
-    const int f = f0 + r;
-    int64_t id = f < a.F ? a.ids[(int64_t)b * a.F + f] : 0;
-    id = id < 0 ? 0 : (id >= a.n_rows ? a.n_rows - 1 : id);
-    X[r * XW + a.DU + c] = to_f(table[id * a.D + c]);
+  if constexpr (kPacked) {
+    __shared__ int64_t row_at[kRows];   // byte offset of each packed row
+    __shared__ float row_scale[kRows];
+    const int8_t* table = static_cast<const int8_t*>(a.table);
+    if (tid < kRows) {
+      const int64_t at = clip_id(a, b, f0 + tid) * (a.D + 4);
+      row_at[tid] = at;
+      row_scale[tid] = *reinterpret_cast<const float*>(table + at + a.D);
+    }
+    __syncthreads();
+    const int D4 = a.D / 4;
+    for (int i = tid; i < kRows * D4; i += kThreads) {
+      const int r = i / D4, c = 4 * (i % D4);
+      const char4 q = *reinterpret_cast<const char4*>(table + row_at[r] + c);
+      const float s = row_scale[r];
+      float* x = X + r * XW + a.DU + c;
+      x[0] = round_t<T>(__fmul_rn((float)q.x, s));
+      x[1] = round_t<T>(__fmul_rn((float)q.y, s));
+      x[2] = round_t<T>(__fmul_rn((float)q.z, s));
+      x[3] = round_t<T>(__fmul_rn((float)q.w, s));
+    }
+  } else {
+    const T* table = static_cast<const T*>(a.table);
+    for (int i = tid; i < kRows * a.D; i += kThreads) {
+      const int r = i / a.D, c = i % a.D;
+      X[r * XW + a.DU + c] = to_f(table[clip_id(a, b, f0 + r) * a.D + c]);
+    }
   }
   for (int i = tid; i < a.L * a.DK; i += kThreads) {
     Ks[(i / a.DK) * KS + i % a.DK] = to_f(kp[i]);
@@ -296,16 +338,22 @@ size_t smem_bytes(const NannScorerArgs& a) {
   return floats * sizeof(float);
 }
 
-template <typename T>
+template <typename T, bool kPacked>
 int launch(const NannScorerArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a);
   cudaError_t err = cudaFuncSetAttribute(
-      frontier_scorer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      frontier_scorer_kernel<T, kPacked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.F + kRows - 1) / kRows, a.B);
-  frontier_scorer_kernel<T><<<grid, kThreads, smem, stream>>>(a);
+  frontier_scorer_kernel<T, kPacked><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_storage(const NannScorerArgs& a, cudaStream_t stream) {
+  return a.storage == 1 ? launch<T, true>(a, stream)
+                        : launch<T, false>(a, stream);
 }
 
 }  // namespace
@@ -316,7 +364,15 @@ extern "C" {
 int nann_frontier_scorer(const NannScorerArgs* a, void* stream) {
   if (a->B == 0 || a->F == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return a->dtype == 1 ? launch<__nv_bfloat16>(*a, s) : launch<float>(*a, s);
+  return a->dtype == 1 ? launch_storage<__nv_bfloat16>(*a, s)
+                       : launch_storage<float>(*a, s);
+}
+
+// The struct's size and its last field's offset, held against
+// FrontierScorerArgs when the library is loaded.
+size_t nann_scorer_args_size(void) { return sizeof(NannScorerArgs); }
+size_t nann_scorer_args_storage_offset(void) {
+  return offsetof(NannScorerArgs, storage);
 }
 
 const char* nann_cuda_error_string(int err) {

@@ -21,7 +21,8 @@ def load_serving_bundle(export_dir: str, scfg: SearchConfig = None,
 
     scfg defaults to the bundle's own SearchConfig; the item table is
     bfloat16 when the model computes in bfloat16, else float32, unless
-    `dtype` says otherwise."""
+    `dtype` says otherwise: "int8" packs it as int8 values and a float32
+    scale per row (SearchIndex.from_artifacts)."""
     dev = resolve_device(device)
     scfg = scfg or load_search_config(export_dir)
     params, state, mcfg = load_exported(export_dir, device=dev)

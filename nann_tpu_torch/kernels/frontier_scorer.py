@@ -1,23 +1,32 @@
 """Frontier scorer: the hand-written Hopper kernel and its wrapper.
 
 `score_frontier` gathers each frontier row from the item table and runs the
-folded scorer chain on it in one launch of `csrc/frontier_scorer.cu` (it
-replaces the Pallas kernel `_score_kernel` of
-nann_tpu/experimental/pallas_scorer.py). On a CUDA tensor it launches the
-kernel or raises; on a CPU tensor it runs `frontier_scorer_plain`, the same
-function in plain PyTorch, which is also what the kernel is held against on
-the card.
+folded scorer chain on it in one launch of `csrc/frontier_scorer.cu`. It
+replaces the Pallas kernels of nann_tpu/experimental/pallas_scorer.py:
+`_score_kernel` for a table of float32 or bfloat16 rows, and
+`_score_kernel_int8` for a packed int8 table (`index/quantize.py`: int8
+[N, D+4], each row's float32 scale in its last 4 bytes), whose rows the
+kernel dequantizes to the compute type as it gathers them. The compute type
+is that of `k_proj`, as in JAX, where packed rows are dequantized to the
+model's compute dtype (nann_tpu/search/beam.py:459-463).
 
-`score_frontier.launches` counts kernel launches.
+On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+`frontier_scorer_plain`, the same function in plain PyTorch, which is also
+what the kernel is held against on the card.
+
+`score_frontier.launches` counts launches on float tables,
+`score_frontier.launches_int8` launches on packed int8 tables.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
 
+from ..index.quantize import unpack_rows
 from ..ops.scorer_kernel import score_frontier_reference
 from . import build
 
@@ -42,7 +51,8 @@ class FrontierScorerArgs(ctypes.Structure):
         "h3_k", "h3_s", "h3_t", "h3_a",
         "h4_k", "h4_s", "h4_t", "out")] + [("n_rows", ctypes.c_int64)] + [
         (name, ctypes.c_int) for name in (
-            "B", "F", "L", "D", "H1", "DK", "DU", "G1", "G2", "G3", "dtype")]
+            "B", "F", "L", "D", "H1", "DK", "DU", "G1", "G2", "G3", "dtype",
+            "storage")]
 
 
 def kernel_weights(folded: Dict[str, torch.Tensor], dt: torch.dtype
@@ -58,9 +68,12 @@ def frontier_scorer_plain(weights: Dict[str, torch.Tensor],
                           k_proj: torch.Tensor, v: torch.Tensor,
                           table: torch.Tensor, ids: torch.Tensor,
                           valid: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: gather (ids clipped to the table), score, and
-    -inf for invalid rows (nann_tpu/search/beam.py:459-495)."""
+    """Plain PyTorch version: gather (ids clipped to the table), dequantize
+    packed int8 rows to the compute type, score, and -inf for invalid rows
+    (nann_tpu/search/beam.py:459-495)."""
     rows = table[ids.long().clamp(0, table.shape[0] - 1)]
+    if table.dtype == torch.int8:
+        rows = unpack_rows(rows, weights["q1_k"].shape[0], k_proj.dtype)
     scores = score_frontier_reference(weights, k_proj, v, rows, k_proj.dtype)
     return torch.where(valid, scores, torch.full_like(scores, float("-inf")))
 
@@ -70,12 +83,28 @@ def _width_ok(n: int) -> bool:
 
 
 def _check(weights, k_proj, v, table, ids, valid):
-    dt = table.dtype
+    dt = k_proj.dtype
     if dt not in _DTYPES:
-        raise TypeError(f"item table must be float32 or bfloat16, got {dt}")
-    if k_proj.dtype != dt or v.dtype != dt:
-        raise TypeError(f"k_proj/v must be {dt} like the item table, got "
-                        f"{k_proj.dtype}/{v.dtype}")
+        raise TypeError(f"compute type (k_proj) must be float32 or bfloat16, "
+                        f"got {dt}")
+    if v.dtype != dt:
+        raise TypeError(f"v must be {dt} like k_proj, got {v.dtype}")
+    D = weights["q1_k"].shape[0]
+    if table.dtype == torch.int8:
+        if D % 4:
+            raise ValueError(f"packed int8 rows need D % 4 == 0 (aligned "
+                             f"scale and char4 loads), got D = {D}")
+        if table.dim() != 2 or table.shape[1] != D + 4:
+            raise ValueError(f"packed int8 table must be [N, D+4] = "
+                             f"[N, {D + 4}], got {tuple(table.shape)}")
+        if table.data_ptr() % 4:
+            raise ValueError("packed int8 table must start 4-byte aligned")
+    elif table.dtype != dt:
+        raise TypeError(f"item table must be {dt} like k_proj, or packed "
+                        f"int8, got {table.dtype}")
+    elif table.dim() != 2 or table.shape[1] != D:
+        raise ValueError(f"item table must be [N, D] = [N, {D}], got "
+                         f"{tuple(table.shape)}")
     if ids.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("ids must be int32 and valid bool")
     if ids.dim() != 2 or valid.shape != ids.shape:
@@ -88,7 +117,7 @@ def _check(weights, k_proj, v, table, ids, valid):
                          f"must be [B={B}, L, *]")
     if not 1 <= k_proj.shape[1] <= MAX_SEQ:
         raise ValueError(f"sequence length must be in 1..{MAX_SEQ}")
-    D, DK, DU = table.shape[1], k_proj.shape[2], v.shape[2]
+    DK, DU = k_proj.shape[2], v.shape[2]
     H1, G1, G2, G3 = (weights[k].shape[-1] for k in ("q1_k", "h1_k", "h2_k",
                                                      "h3_k"))
     shapes = {"q1_k": (D, H1), "q2_k": (H1, DK), "h1_k": (DU + D, G1),
@@ -103,7 +132,7 @@ def _check(weights, k_proj, v, table, ids, valid):
                              f"the kernel needs {shape}")
     for k in MATRICES:
         if weights[k].dtype != dt:
-            raise TypeError(f"{k} must be {dt} like the item table")
+            raise TypeError(f"{k} must be {dt} like k_proj")
     for n in (H1, DK, G1, G2, G3):
         if not _width_ok(n):
             raise ValueError(f"layer width {n} must divide 256 (>= 8) or be "
@@ -125,8 +154,31 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def check_struct(lib) -> None:
+    """Raise unless the library's NannScorerArgs has the size of
+    FrontierScorerArgs and its last field the same offset: a field added on
+    one side only would make the kernel read every later field from the
+    wrong offset, silently. The size alone misses an int added or dropped
+    where the struct's tail padding absorbs it; the last field's offset
+    does not."""
+    got = {}
+    for fn in ("nann_scorer_args_size", "nann_scorer_args_storage_offset"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_size_t
+        got[fn] = getattr(lib, fn)()
+    want = {"nann_scorer_args_size": ctypes.sizeof(FrontierScorerArgs),
+            "nann_scorer_args_storage_offset": FrontierScorerArgs.storage.offset}
+    if got != want:
+        raise RuntimeError(f"NannScorerArgs in the library ({got}) differs "
+                           f"from FrontierScorerArgs ({want})")
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """The kernel library, built at first use; its argument types are set
+    and its struct size is checked once."""
     lib = build.load("frontier_scorer")
+    check_struct(lib)
     lib.nann_frontier_scorer.argtypes = [ctypes.POINTER(FrontierScorerArgs),
                                          ctypes.c_void_p]
     lib.nann_frontier_scorer.restype = ctypes.c_int
@@ -141,13 +193,15 @@ def score_frontier(weights: Dict[str, torch.Tensor], k_proj: torch.Tensor,
     """Scores [B, F] float32 of table rows ids [B, F] for each query's
     k_proj [B, L, DK] / v [B, L, DU]; -inf where valid is False.
 
-    weights: `kernel_weights(fold_scorer(...), dt)`. CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version."""
+    weights: `kernel_weights(fold_scorer(...), dt)` with dt = k_proj.dtype;
+    table: [N, D] rows of dt, or packed int8 [N, D+4]. CUDA tensors launch
+    the kernel (or raise); CPU tensors run the plain version."""
     if table.device.type == "cpu":
         return frontier_scorer_plain(weights, k_proj, v, table, ids, valid)
     if table.device.type != "cuda":
         raise ValueError(f"no frontier scorer for device {table.device}")
     _check(weights, k_proj, v, table, ids, valid)
+    packed = table.dtype == torch.int8
     B, F = ids.shape
     out = torch.empty((B, F), dtype=torch.float32, device=table.device)
     if B == 0 or F == 0:
@@ -164,17 +218,22 @@ def score_frontier(weights: Dict[str, torch.Tensor], k_proj: torch.Tensor,
         _ptr(w["h3_k"]), _ptr(w["h3_scale"]), _ptr(w["h3_shift"]),
         _ptr(w["h3_alpha"]),
         _ptr(w["h4_k"]), _ptr(w["h4_scale"]), _ptr(w["h4_shift"]), _ptr(out),
-        table.shape[0], B, F, k_proj.shape[1], table.shape[1],
+        table.shape[0], B, F, k_proj.shape[1], w["q1_k"].shape[0],
         w["q1_k"].shape[1], k_proj.shape[2], v.shape[2], w["h1_k"].shape[1],
-        w["h2_k"].shape[1], w["h3_k"].shape[1], _DTYPES[table.dtype])
+        w["h2_k"].shape[1], w["h3_k"].shape[1], _DTYPES[k_proj.dtype],
+        int(packed))
     lib = _library()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.nann_frontier_scorer(ctypes.byref(args), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError("frontier scorer launch failed: "
                            + lib.nann_cuda_error_string(err).decode())
-    score_frontier.launches += 1
+    if packed:
+        score_frontier.launches_int8 += 1
+    else:
+        score_frontier.launches += 1
     return out
 
 
 score_frontier.launches = 0
+score_frontier.launches_int8 = 0

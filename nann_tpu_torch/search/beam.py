@@ -10,7 +10,8 @@ same truncations and ties fall the same way.
 Each hop: neighbor expansion -> in-frontier dedup and visited test by one
 sort over tagged keys -> unbiased truncation to the hop's frontier cap ->
 scoring of the fresh rows through the frontier-scorer kernel
-(`kernels/frontier_scorer.py`), which gathers the rows itself.
+(`kernels/frontier_scorer.py`), which gathers the rows itself, from a float
+item table or a packed int8 one (`SearchIndex.from_artifacts(dtype="int8")`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, SearchConfig
+from ..index.quantize import pack_quantized
+from ..index.reorder import bfs_order, relabel
 from ..kernels.frontier_scorer import (frontier_scorer_plain, kernel_weights,
                                        score_frontier)
 from ..models.layers import Params, State
@@ -38,7 +41,7 @@ SALT_MULT = 0x1F123BB5    # per-hop truncation salt, beam.py:518-519
 class SearchIndex:
     """Device-resident retrieval state."""
 
-    item_embs: torch.Tensor            # [N, d_item]
+    item_embs: torch.Tensor            # [N, d_item], or int8 [N, d_item+4]
     item_ids: torch.Tensor             # [N] int32 external ids
     enter_points: torch.Tensor         # [n_ep] int32 node indices
     neighbors: Dict[int, torch.Tensor]  # level -> [N, deg_l] int32, self-padded
@@ -49,19 +52,38 @@ class SearchIndex:
 
     @staticmethod
     def from_artifacts(art, item_embs: np.ndarray, item_ids: np.ndarray,
-                       dtype=torch.float32, device="cuda") -> "SearchIndex":
-        """Packed artifacts (index.load_index) + catalogue -> device tensors.
-        dtype is the item table's: float32 or bfloat16."""
+                       dtype=torch.float32, reorder: str = None,
+                       device="cuda") -> "SearchIndex":
+        """Packed artifacts (index.load_index) + catalogue -> device tensors
+        (beam.py:108-137).
+
+        dtype is the item table's: float32, bfloat16, or "int8" (or
+        torch.int8), which packs each row as symmetric int8 values and its
+        float32 scale, int8 [N, d+4] (index/quantize.py); the frontier
+        scorer dequantizes the gathered rows to the compute type.
+
+        reorder="bfs" relabels the nodes in breadth-first order from the
+        enter points (index/reorder.py) before the table is packed."""
+        if reorder not in (None, "bfs"):
+            raise ValueError(f"reorder must be None or 'bfs', got {reorder!r}")
         dev = resolve_device(device)
+        enter, neigh = np.asarray(art.enter_points), art.neighbors
+        item_embs = np.asarray(item_embs, np.float32)
+        item_ids = np.asarray(item_ids)
+        if reorder == "bfs":
+            order = bfs_order(neigh[0], enter, item_embs.shape[0])
+            enter, neigh, item_embs, item_ids = relabel(
+                enter, neigh, item_embs, item_ids, order)
+        if dtype in ("int8", torch.int8):
+            embs = pack_quantized(item_embs).to(dev)
+        else:
+            embs = torch.as_tensor(item_embs).to(dev, dtype).contiguous()
         return SearchIndex(
-            item_embs=torch.as_tensor(np.asarray(item_embs, np.float32)
-                                      ).to(dev, dtype).contiguous(),
-            item_ids=torch.as_tensor(np.asarray(item_ids).astype(np.int32)
-                                     ).to(dev),
-            enter_points=torch.as_tensor(
-                np.asarray(art.enter_points).astype(np.int32)).to(dev),
+            item_embs=embs,
+            item_ids=torch.as_tensor(item_ids.astype(np.int32)).to(dev),
+            enter_points=torch.as_tensor(enter.astype(np.int32)).to(dev),
             neighbors={l: torch.as_tensor(np.asarray(v, np.int32)).to(dev)
-                       for l, v in art.neighbors.items()},
+                       for l, v in neigh.items()},
         )
 
 

@@ -24,7 +24,15 @@ def brute_force_topk(params: Params, state: State, mcfg: ModelConfig,
                      k: int = 200, chunk_size: int = 8192
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """user_seq_emb [B, L, d_user], item_embs [N, d_item] ->
-    (top_idx [B, min(k, N)] int32 row indices, top_scores [B, min(k, N)])."""
+    (top_idx [B, min(k, N)] int32 row indices, top_scores [B, min(k, N)]).
+
+    item_embs is a float table: the oracle of an int8 index is the float
+    table of the same items, as in the JAX package, which has no int8
+    oracle."""
+    if item_embs.dtype == torch.int8:
+        raise TypeError("the brute-force oracle takes a float32 or bfloat16 "
+                        "item table, not a packed int8 one: score the float "
+                        "table of the same items")
     dt = torch_dtype(mcfg.compute_dtype)
     dev = item_embs.device
     user = user_seq_emb.to(dev)
