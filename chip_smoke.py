@@ -31,10 +31,14 @@ script exits non-zero:
              ([100, 128] sort, 12,800 -> 128 top-k) and at every shape the
              search gives them, on rows salted with ties, runs of -inf, -0.0
              beside +0.0 and negative int32; each with its bound and the time
-             of torch.sort(stable=True) or torch.topk on the same inputs.
+             of torch.sort(stable=True) or torch.topk on the same inputs. The
+             sort also at its paths' boundaries (short rows up to 8,192 keys,
+             tiles of 4,096) and at [1, 100,000], each case with its path
+             and tile count, and twice on the same rows (equal bits).
              Every byte-map and select case, and its library call, is
              timed twice: CUDA events around 10 calls (host work included)
-             and its own device time per call from torch.profiler
+             and its device time per call from torch.profiler (every device
+             kernel of a call: a tiled sort launches nine)
   4 bundle   random serving-width weights (seeded) and 100,000 items of width
              64; HNSW graph (M=32, ef_construction=64); the bundle is written
              with the port's writer to a temporary directory and read back
@@ -147,17 +151,25 @@ TRASH = max(SCFG.top_k_per_level) * 2 * HNSW_M
 VISITED_OPS = (visited_ops.gather_elems, visited_ops.gather_rows,
                visited_ops.scatter_set)
 SELECT_OPS = (select_ops.row_sort, select_ops.row_topk)
-# the shapes the search gives the selects (B = 64; chip_smoke's workload):
+# the shapes the search gives the row sort (B = 64; chip_smoke's workload):
 # widths of the list merge and the "exact" selection (the visited list grows
 # by 4096 a hop), of the byte-map's expansion sort, and of the wide hop's
-# stable id sort with its permutation
-SORT_CASES = [("merge, level 1", 2970, False), ("merge, ground 1", 13000, False),
-              ("merge, ground 2", 29896, False),
-              ("merge, ground 3", 33992, False),
-              ("byte-map expansion", 2880, False),
-              ("byte-map expansion", 12800, False),
-              ("byte-map expansion", 25600, False),
-              ("wide id sort", 8192, True)]
+# stable id sort with its permutation; then the boundaries of its paths
+# (short rows up to SHORT_ROW, tiles of SORT_TILE keys) and the ops layer's
+# [1, 100,000]: (label, B, W, with_perm)
+_T, _S = select_ops.SORT_TILE, select_ops.SHORT_ROW
+SORT_CASES = [("merge, level 1", 64, 2970, False),
+              ("merge, ground 1", 64, 13000, False),
+              ("merge, ground 2", 64, 29896, False),
+              ("merge, ground 3", 64, 33992, False),
+              ("byte-map expansion", 64, 2880, False),
+              ("byte-map expansion", 64, 12800, False),
+              ("byte-map expansion", 64, 25600, False),
+              ("wide id sort", 64, 8192, True),
+              ("short rows, S + 1", 64, _S + 1, False),
+              ("tiles, 3T - 1", 64, 3 * _T - 1, False),
+              ("tiles, 3T + 1", 64, 3 * _T + 1, False),
+              ("ops bitmap", 1, NUM_ITEMS, False)]
 # (label, W, k, largest, dtype): every _masked_topk of a search, the "topk"
 # and "approx" selections, the wide hop's selection, the oracle
 TOPK_CASES = [("enter points", 90, 90, True, torch.float32),
@@ -176,6 +188,9 @@ TOPK_CASES = [("enter points", 90, 90, True, torch.float32),
 # gather
 TAKE_CASES = [("_masked_topk ids", 4496, 400), ("approx keys", 33992, 4096),
               ("wide neighbours", 25600, 8192)]
+# row_sort calls of a list search on this workload: the merge and the
+# "exact" selection of each of its 4 hops (level 1, three ground hops)
+SORTS_PER_LIST_SEARCH = 8
 MAIN_SELECT = {"row_sort": "merge, ground 3",
                "row_topk": "merge, ground 2-3"}
 
@@ -239,7 +254,8 @@ def device_events(fn):
 
 def device_breakdown(fn):
     """Device milliseconds of one fn() by kernel family from torch.profiler:
-    the frontier scorer, the row sort and top-k (select_ops), the gathers
+    the frontier scorer, the row sort (every `row_sort_*` kernel of a call)
+    and top-k (select_ops), the gathers
     and scatter of visited_ops (the lane gathers included), other sorts
     (PyTorch's), everything else. None where the profiler records no device
     time."""
@@ -252,7 +268,7 @@ def device_breakdown(fn):
         name = key.lower()
         group = "frontier_scorer" if "frontier_scorer" in name else \
             "select_ops" if any(k in name for k in (
-                "row_sort_kernel", "row_topk_kernel")) \
+                "row_sort_", "row_topk_kernel")) \
             else "visited_ops" if any(k in name for k in (
                 "gather_elems", "gather_rows", "scatter_set")) else \
             "sort" if "sort" in name else "other"
@@ -260,25 +276,42 @@ def device_breakdown(fn):
     return groups if sum(groups.values()) > 0 else None
 
 
-def device_ms_pair(kernel, library, symbol, calls=10):
-    """From one torch.profiler session over `calls` calls of kernel() and
-    then of library(): the kernel `symbol`'s own device milliseconds per
-    launch, and the device milliseconds per call of everything else (the
-    library call's kernels; kernel() launches nothing but `symbol`).
-    (None, None) where it is not measured. The tracer now and then records
-    no kernel of a short session, so an empty one is taken once more."""
-    for _ in range(2):
-        events = device_events(lambda: ([kernel() for _ in range(calls)],
-                                        [library() for _ in range(calls)]))
-        if events is None:
-            return None, None
-        own = [(ms, count) for key, ms, count in events if symbol in key]
-        launches = sum(count for _, count in own)
-        if launches:
-            own_ms = sum(ms for ms, _ in own)
-            rest_ms = sum(ms for _, ms, _ in events) - own_ms
-            return own_ms / launches, rest_ms / calls
-    return None, None
+def device_ms_pair(kernel, library, symbols, calls=10):
+    """The device milliseconds per call of kernel() and of library(), each
+    from its own torch.profiler session over `calls` calls: every device
+    kernel (and memset) a session records counts on its side, so a wrapper
+    that launches several kernels a call is timed whole. Also kernel()'s
+    device kernels per call, and {kernel name: (device ms, launches) per
+    call}. (None, None, None, None) where it is not measured. The tracer
+    now and then records no kernel of a short session, or not the kernel's
+    own (no name holds one of `symbols`), so such a session is taken once
+    more."""
+    def per_call(fn, want):
+        for _ in range(2):
+            events = device_events(lambda: [fn() for _ in range(calls)])
+            if events is None:
+                return None
+            if any(any(k in key for k in want) for key, _, _ in events):
+                return (sum(ms for _, ms, _ in events) / calls,
+                        sum(count for _, _, count in events) / calls,
+                        {kernel_name(key): (ms / calls, count / calls)
+                         for key, ms, count in events})
+        return None
+
+    own = per_call(kernel, symbols)
+    lib = per_call(library, ("",)) if own else None
+    if own is None or lib is None:
+        return None, None, None, None
+    return own[0], lib[0], own[1], own[2]
+
+
+def kernel_name(key: str) -> str:
+    """A device kernel's bare name, without namespaces, template arguments
+    and parameters: `(anonymous namespace)::row_sort_plan_kernel(SortPlan)`
+    -> `row_sort_plan_kernel`."""
+    key = key.replace("(anonymous namespace)", "").split("(")[0]
+    key = key.split("<")[0].split("::")[-1].split()
+    return key[-1] if key else "?"
 
 
 def row_flops(mcfg: ModelConfig, L: int) -> int:
@@ -427,7 +460,8 @@ def same_bits(got, want) -> bool:
         for g, w in zip(got, want))
 
 
-def hold_exact(name, label, kernel, plain, library, nbytes, compare=None):
+def hold_exact(name, label, kernel, plain, library, nbytes, compare=None,
+               symbols=None):
     """One kernel case of the byte-map's or the selects' kernels: the
     kernel's output against its plain version's, bit for bit (`compare()`
     gives both: for a scatter on fresh copies of the table, for a sort with
@@ -437,7 +471,8 @@ def hold_exact(name, label, kernel, plain, library, nbytes, compare=None):
     kernel and the library call are timed twice: `ms` and `library_ms`,
     CUDA events around back-to-back calls (host work included, where the
     host is slower than the card), and `device_ms` and `library_device_ms`,
-    their own device time per call (torch.profiler)."""
+    their own device time per call (torch.profiler; every device kernel of
+    a call, whose names hold one of `symbols`, by default `{name}_kernel`)."""
     got, want = compare() if compare else (kernel(), plain())
     torch.cuda.synchronize()
     if not same_bits(got, want):
@@ -445,8 +480,8 @@ def hold_exact(name, label, kernel, plain, library, nbytes, compare=None):
                              f"plain version")
     ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain), \
         cuda_ms(library)
-    device_ms, library_device_ms = device_ms_pair(kernel, library,
-                                                  f"{name}_kernel")
+    device_ms, library_device_ms, per_call, by_kernel = device_ms_pair(
+        kernel, library, symbols or (f"{name}_kernel",))
     bound = nbytes / PEAK_BYTES * 1e3
 
     def dev(t):
@@ -454,9 +489,17 @@ def hold_exact(name, label, kernel, plain, library, nbytes, compare=None):
     print(f"   {name:12s} {label:58s} bit-exact; kernel {ms:.4f} ms "
           f"(device {dev(device_ms)}), plain {plain_ms:.4f} ms, library "
           f"{library_ms:.4f} ms (device {dev(library_device_ms)}), bound "
-          f"{bound:.5f} ms (bytes)", flush=True)
+          f"{bound:.5f} ms (bytes); device kernels a call "
+          f"{'not measured' if per_call is None else f'{per_call:g}'}",
+          flush=True)
+    if by_kernel and len(by_kernel) > 1:
+        print("      device ms a call by kernel: " + ", ".join(
+            f"{k} {ms:.4f} ({n:g} launches)"
+            for k, (ms, n) in by_kernel.items()), flush=True)
     return {"name": name, "shape": label, "max_abs_err": 0.0, "ms": ms,
-            "device_ms": device_ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "device_kernels_per_call": per_call,
+            "device_ms_by_kernel": by_kernel,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_device_ms,
             "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes}
 
@@ -605,13 +648,16 @@ def check_select_kernels(dev):
 
     def sort_case(label, x, with_perm):
         kind = str(x.dtype).replace("torch.", "")
+        path, tiles, _ = so._sort_plan(*x.shape)
         return hold_exact(
             "row_sort", f"{label}: {kind} {list(x.shape)}"
-            + (" with perm" if with_perm else ""),
+            + (" with perm" if with_perm else "") + f" ({path}, {tiles} "
+            f"tile{'s' if tiles > 1 else ''})",
             lambda: so.row_sort(x, with_perm), lambda: so.row_sort_plain(
                 x, with_perm), lambda: torch.sort(x, stable=True),
             x.numel() * (12 if with_perm else 8),
-            compare=lambda: (so.row_sort(x, True), so.row_sort_plain(x, True)))
+            compare=lambda: (so.row_sort(x, True), so.row_sort_plain(x, True)),
+            symbols=("row_sort_",))
 
     def topk_case(label, x, k, largest):
         kind = str(x.dtype).replace("torch.", "")
@@ -623,11 +669,19 @@ def check_select_kernels(dev):
             lambda: torch.topk(x, k, largest=largest),
             x.numel() * 4 + x.shape[0] * k * 8)
 
+    print(f"   row_sort blocks an SM: "
+          f"{ {p: so.blocks_per_sm(p, dev) for p in so.SORT_PATHS} }")
     sorts = [sort_case("probe build_sort", idx2d, False)]
-    sorts += [sort_case(label, edge_rows(B, W, torch.int32, gen), perm)
-              for label, W, perm in SORT_CASES]
+    sorts += [sort_case(label, edge_rows(b, W, torch.int32, gen), perm)
+              for label, b, W, perm in SORT_CASES]
     sorts += [sort_case("float32 rows", edge_rows(B, W, torch.float32, gen),
                         True) for W in (2970, 33992)]
+    # two calls give equal bits (a key's place never depends on which
+    # block ran first)
+    for W in (_S, 33992):
+        x = edge_rows(B, W, torch.float32, gen)
+        if not same_bits(so.row_sort(x, True), so.row_sort(x, True)):
+            raise AssertionError(f"row_sort [{B}, {W}]: two calls differ")
     topks = [topk_case("probe build_topk", idx2d.reshape(1, -1), 128, True)]
     topks += [topk_case(label, edge_rows(B, W, dt, gen), k, largest)
               for label, W, k, largest, dt in TOPK_CASES]
@@ -829,6 +883,12 @@ def run(dev: torch.device, tmp: str) -> int:
         if not all(path_launches.values()):
             raise AssertionError(f"a kernel of the main path was not "
                                  f"launched: {path_launches}")
+        # row_sort counts calls: one device kernel a call on short rows,
+        # nine on tiled rows
+        if path_launches["row_sort"] != SORTS_PER_LIST_SEARCH:
+            raise AssertionError(f"row_sort was called "
+                                 f"{path_launches['row_sort']} times in a "
+                                 f"list search, not {SORTS_PER_LIST_SEARCH}")
         # one scorer (the kernel), the sorts, top-ks and element gathers on
         # their plain versions
         selects = select_ops.selects
@@ -1185,9 +1245,9 @@ def run(dev: torch.device, tmp: str) -> int:
             "launches_per_search": path_launches[name],
             "launches_per_bytemap_search": bytemap_launches[name],
             **{k: main[k] for k in ("max_abs_err", "ms", "device_ms",
-                                    "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "library_device_ms",
-                                    "shape")},
+                                    "device_kernels_per_call", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_device_ms", "shape")},
             "card": card, "cases": select_cases[name]}
 
     probe = "scripts/probe_kernel_ops.py"

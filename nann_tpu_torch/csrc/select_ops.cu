@@ -33,31 +33,65 @@
 // input read once and the outputs written once. A sort of B rows of W keys
 // moves 8 B W bytes (12 B W with the permutation).
 //
-// Design (simple first): one block of 1024 threads per row, the row's
-// scratch in global memory (it stays in the 50 MB L2). B = 64 rows give 64
-// blocks on 132 SMs; splitting rows over blocks is left for later.
+// row_sort: an LSD radix sort of 32-bit keys in four 8-bit digits. A digit
+// every key of the row shares is skipped (a row of small ids shares its
+// high digits). The last pass that runs writes the
+// permutation and the values: an int32's from its key, a float's read back
+// from the input through the permutation, so their bits are the input's
+// (-0.0 stays -0.0). Two paths, chosen by width
+// (mirrored by `_sort_plan` in kernels/select_ops.py):
 //
-// - The sort is an LSD radix sort of 32-bit keys in four 8-bit digits. One
-//   pass over the row writes the radix keys and their indices to the scratch
-//   and counts all four digits' histograms (a digit's histogram does not
-//   depend on the order). A digit every key shares is skipped. Each digit
-//   pass walks the row in rounds of 4096 keys, 4 a thread (their loads in
-//   flight together): a key's rank among equal digits of its 32-key slice
-//   comes from one warp ballot per digit bit, the slices' counts are
-//   scanned per digit in shared memory (four threads a digit) on top of the
-//   digit's running bucket base, so a key lands after every equal digit of
-//   a lower index: stable. The counts take 128 KB of dynamic shared memory.
-//   The last pass gives the permutation; the values are read back from the
-//   input through it, so their bits are the input's (-0.0 stays -0.0).
-// - The top-k is a radix select over the row: four passes of a histogram of
-//   one digit among the keys that share the digits found so far give the
-//   k-th key T and how many of its ties are taken. One more pass compacts
-//   the winners in index order (the keys below T, then T's ties while they
-//   last, with block-wide ballot scans), and the radix sort above orders
-//   those k winners. The row is only read, so a row of 100,000 (the
-//   oracle's) needs no room in shared memory.
-// - Both kernels opt in to their dynamic shared memory once per device
-//   (nann_select_init), not on every launch.
+// - short rows (W <= kShortRow = 8192): one block of 512 threads a row holds
+//   the row in registers (16 keys a thread) and runs every pass inside the
+//   block: global memory is read once and written once. 84,032 bytes of
+//   dynamic shared memory: two blocks an SM.
+// - tiled rows (W > 8192): the row is cut into tiles of kSortTile = 4096
+//   keys (512 threads x 8), and the grid is (B, tiles): [64, 33,992] gives
+//   64 x 9 = 576 blocks on the 132 SMs, where one block a row used 64. One
+//   call launches, on the caller's stream:
+//   1. prepare: each tile's histograms of all four digits ([B, tiles, 4,
+//      256]), counted with shared atomics and stored whole, so nothing in
+//      global memory is zeroed or added to by two blocks;
+//   2. plan (one block a row): the row's histograms (the tiles' summed),
+//      each digit's bucket base (their exclusive scan) and which digits the
+//      row must sort by ([B] flags);
+//   3. for each digit that runs: an upsweep (the tile's counts of the
+//      digit; the first pass takes prepare's) and a downsweep. A tile's
+//      base for a digit is its bucket base plus that digit's counts in the
+//      row's earlier tiles: a short read (9 tiles at 33,992; 25 at 100,000),
+//      no look-back and no spin-wait, so a key's place never depends on
+//      which block ran first. The downsweep ranks its tile's keys stably in
+//      shared memory, stages the tile in digit order there and writes each
+//      digit's run to its contiguous place, so neighbouring threads store to
+//      neighbouring addresses. The first pass reads the input (the index is
+//      the position), the last writes out and perm; between them the keys
+//      and indices ping-pong in the scratch (the wrapper allocates it:
+//      tiled_scratch_words), which fits the 50 MB L2 at the search's
+//      widths.
+//   51,264 bytes of dynamic shared memory a downsweep block: shared memory
+//   would let four blocks share an SM, its registers let two
+//   (nann_row_sort_blocks_per_sm says).
+//
+// What each path does about the old kernel's costs (one block of 1024
+// threads a row, 140 KB of shared memory): the tiles fill all 132 SMs and
+// several blocks share an SM; a key's rank costs eight ballots and one
+// shared atomic per group of equal digits in a warp (its warp's running
+// count), and the block's scan is over [16 warps x 256 digits] counters, an
+// eighth of the old [128 slices x 256] for the same 4096 keys; the stores
+// are runs of equal digits, coalesced, where the old kernel wrote each key
+// alone.
+//
+// row_topk is a radix select over the row: four passes of a histogram of
+// one digit among the keys that share the digits found so far give the
+// k-th key T and how many of its ties are taken. One more pass compacts the
+// winners in index order (the keys below T, then T's ties while they last,
+// with block-wide ballot scans), and a block radix sort (one block of 1024
+// threads, 32-key slices ranked by ballots) orders those k winners. The row
+// is only read, so a row of 100,000 (the oracle's) needs no room in shared
+// memory.
+//
+// Every kernel above 48 KB of dynamic shared memory opts in once per device
+// (nann_select_init), not on every launch.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC   (plain C interface, loaded by ctypes)
@@ -69,16 +103,18 @@
 // One argument struct for the two entry points; mirrored field for field by
 // `SelectArgs` in nann_tpu_torch/kernels/select_ops.py.
 struct NannSelectArgs {
-  const void* x;        // keys [B, W]
-  void* out;            // row_sort: [B, W]; row_topk: [B, K]
-  int32_t* perm;        // row_sort: permutation [B, W] or null;
-                        // row_topk: indices [B, K]
-  uint32_t* scratch;    // row_sort: [4, B, W]; row_topk: [4, B, K]
-  int64_t B;            // rows
-  int64_t W;            // keys per row
-  int64_t K;            // row_topk: k
-  int32_t is_float;     // 1: float32 keys, 0: int32 keys
-  int32_t largest;      // row_topk: 1 = the k largest, 0 = the k smallest
+  const void* x;          // keys [B, W]
+  void* out;              // row_sort: [B, W]; row_topk: [B, K]
+  int32_t* perm;          // row_sort: permutation [B, W] or null;
+                          // row_topk: indices [B, K]
+  uint32_t* scratch;      // row_sort: scratch_words (rows above
+                          // kShortRow, else none); row_topk: [4, B, K]
+  int64_t B;              // rows
+  int64_t W;              // keys per row
+  int64_t K;              // row_topk: k
+  int64_t scratch_words;  // row_sort: words of the scratch
+  int32_t is_float;       // 1: float32 keys, 0: int32 keys
+  int32_t largest;        // row_topk: 1 = the k largest, 0 = the k smallest
 };
 
 namespace {
@@ -115,6 +151,15 @@ __device__ __forceinline__ uint32_t radix_key(uint32_t bits, bool is_float) {
   if (mag == 0) bits = 0;                        // -0.0 ties with +0.0
   else if (mag > 0x7f800000u) bits = 0x7fc00000u;   // one NaN, above +inf
   return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+// The bits of the value a sorted key came from: an int32's from its key
+// alone; a float's (whose key maps -0.0 and every NaN to one key) read back
+// from the row x at its index.
+__device__ __forceinline__ uint32_t value_of(uint32_t key, uint32_t idx,
+                                             const uint32_t* x,
+                                             bool is_float) {
+  return is_float ? x[idx] : key ^ 0x80000000u;
 }
 
 // The lanes of the warp whose d agrees with this lane's in the low kBits
@@ -276,43 +321,6 @@ __device__ void zero_counts(Smem& s) {
   for (int t = threadIdx.x; t < 4 * kBins; t += kThreads) hist[t] = 0;
 }
 
-__global__ void __launch_bounds__(kThreads) row_sort_kernel(NannSelectArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Smem& s = *reinterpret_cast<Smem*>(smem);
-  const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x;
-  const int n = (int)a.W;
-  const bool is_float = a.is_float != 0;
-  const uint32_t* x = static_cast<const uint32_t*>(a.x) + row * n;
-  uint32_t* ka = a.scratch + (0 * a.B + row) * n;
-  uint32_t* ia = a.scratch + (1 * a.B + row) * n;
-  uint32_t* kb = a.scratch + (2 * a.B + row) * n;
-  uint32_t* ib = a.scratch + (3 * a.B + row) * n;
-
-  zero_counts(s);
-  __syncthreads();
-  for (int base = 0; base < n; base += kThreads) {
-    const int i = base + tid;
-    const bool valid = i < n;
-    const uint32_t key = valid ? radix_key(x[i], is_float) : 0;
-    if (valid) {
-      ka[i] = key;
-      ia[i] = i;
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      warp_hist_add(s.hist[p], (key >> (8 * p)) & (kBins - 1), valid);
-  }
-  const uint32_t* order = block_radix_sort(ka, ia, kb, ib, n, s) ? ib : ia;
-  uint32_t* out = static_cast<uint32_t*>(a.out) + row * n;
-  int32_t* perm = a.perm ? a.perm + row * n : nullptr;
-  for (int i = tid; i < n; i += kThreads) {
-    const uint32_t j = order[i];
-    out[i] = x[j];
-    if (perm) perm[i] = (int32_t)j;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads) row_topk_kernel(NannSelectArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem& s = *reinterpret_cast<Smem*>(smem);
@@ -437,35 +445,454 @@ __global__ void __launch_bounds__(kThreads) row_topk_kernel(NannSelectArgs a) {
   }
 }
 
+// ---------------------------------------------------------------- row_sort
+
+constexpr int kSortThreads = 512;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kTileItems = 8;                            // keys a thread, tiled
+constexpr int kSortTile = kTileItems * kSortThreads;     // 4096 keys a tile
+constexpr int kShortItems = 16;                          // keys a thread, short
+constexpr int kShortRow = kShortItems * kSortThreads;    // 8192: one block
+
+// A block's ranking room: its warps' running digit counts (then their
+// offsets), the block's keys and indices staged in digit order, and each
+// digit's start in the stage and (tiled) in the row. 51,264 bytes for a
+// tile, 84,032 for a short row.
+template <int kItems>
+struct RankSmem {
+  uint32_t warp_cnt[kSortWarps][kBins];
+  uint32_t key[kItems * kSortThreads];
+  uint32_t idx[kItems * kSortThreads];
+  uint32_t start[kBins];
+  uint32_t base[kBins];
+  uint32_t warp_sum[kSortWarps];
+};
+
+// Where the tiled path's pieces lie in the scratch (uint32 words): keys and
+// indices twice [B, tiles * kSortTile], the tiles' histograms of every
+// digit [B, tiles, 4, kBins], one digit's tile counts [B, tiles, kBins], the
+// bucket bases [B, 4, kBins] and the digits to sort by [B]. Every word a
+// kernel reads was written earlier in the same call: nothing is zeroed.
+struct SortPlan {
+  const uint32_t* x;
+  uint32_t* out;
+  int32_t* perm;
+  uint32_t* keys[2];
+  uint32_t* ids[2];
+  uint32_t* tile_all;
+  uint32_t* tile_cnt;
+  uint32_t* bucket;
+  uint32_t* flags;
+  int64_t W;
+  int64_t stride;     // tiles * kSortTile
+  int32_t tiles;
+  int32_t is_float;
+};
+
+int64_t tiles_of(int64_t w) { return (w + kSortTile - 1) / kSortTile; }
+
+int64_t tiled_scratch_words(int64_t B, int64_t W) {
+  const int64_t tiles = tiles_of(W);
+  return 4 * B * tiles * kSortTile + B * tiles * 5 * kBins + B * 4 * kBins
+         + B;
+}
+
+SortPlan sort_plan(const NannSelectArgs& a) {
+  SortPlan p;
+  p.x = static_cast<const uint32_t*>(a.x);
+  p.out = static_cast<uint32_t*>(a.out);
+  p.perm = a.perm;
+  p.W = a.W;
+  p.tiles = (int32_t)tiles_of(a.W);
+  p.stride = (int64_t)p.tiles * kSortTile;
+  p.is_float = a.is_float;
+  uint32_t* s = a.scratch;
+  const int64_t row_words = a.B * p.stride;
+  p.keys[0] = s;
+  p.ids[0] = s + row_words;
+  p.keys[1] = s + 2 * row_words;
+  p.ids[1] = s + 3 * row_words;
+  p.tile_all = s + 4 * row_words;
+  p.tile_cnt = p.tile_all + a.B * p.tiles * 4 * kBins;
+  p.bucket = p.tile_cnt + a.B * p.tiles * kBins;
+  p.flags = p.bucket + a.B * 4 * kBins;
+  return p;
+}
+
+// The exclusive prefix sum of v over threads 0..255 (v of the others is
+// ignored). Every thread of the block calls it; it ends on a barrier, so
+// warp_sum may be used again at once.
+__device__ uint32_t scan_bins(uint32_t v, uint32_t* warp_sum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid >= kBins) v = 0;
+  uint32_t incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31 && warp < kBins / 32) warp_sum[warp] = incl;
+  __syncthreads();
+  uint32_t off = 0;
+  for (int w = 0; w < warp && w < kBins / 32; ++w) off += warp_sum[w];
+  __syncthreads();
+  return off + incl - v;
+}
+
+// A warp's keys in index order (item j of lane l is the warp's key
+// j * 32 + l, j < items <= kItems, the same on every thread of the block):
+// rank[j] = the keys of a lower index with digit d[j], counted on top of
+// cnt[d] (the warp's running counts, zero at the start; its totals at the
+// end). Eight ballots group the lanes of equal digits, and the group's
+// lowest lane adds the group to the count.
+template <int kItems>
+__device__ __forceinline__ void warp_rank(const uint32_t (&d)[kItems],
+                                          uint32_t (&rank)[kItems],
+                                          uint32_t* cnt, int items) {
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (j >= items) break;
+    const unsigned peers = warp_peers<8>(d[j]);
+    const uint32_t below = __popc(peers & lanemask_lt());
+    uint32_t prior = 0;
+    if (below == 0) prior = atomicAdd(cnt + d[j], __popc(peers));
+    rank[j] = __shfl_sync(kFull, prior, __ffs(peers) - 1) + below;
+  }
+}
+
+// The block's ranks: afterwards s.start[d] is where digit d's run begins in
+// the stage and s.warp_cnt[w][d] where warp w's keys of digit d begin
+// within the run. Returns (threads 0..255, for their digit) the block's
+// count of the digit. Slots past the row carry d = kBins - 1 and, being
+// last in index order, come last.
+template <int kItems>
+__device__ uint32_t block_rank(const uint32_t (&d)[kItems],
+                               uint32_t (&rank)[kItems],
+                               RankSmem<kItems>& s, int items = kItems) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint32_t* cnt = s.warp_cnt[warp];
+  for (int k = lane; k < kBins; k += 32) cnt[k] = 0;
+  __syncwarp();
+  warp_rank<kItems>(d, rank, cnt, items);
+  __syncthreads();
+  uint32_t total = 0;
+  if (tid < kBins) {
+    for (int w = 0; w < kSortWarps; ++w) {
+      const uint32_t c = s.warp_cnt[w][tid];
+      s.warp_cnt[w][tid] = total;
+      total += c;
+    }
+  }
+  const uint32_t start = scan_bins(total, s.warp_sum);
+  if (tid < kBins) s.start[tid] = start;
+  return total;
+}
+
+// Each key and index into its place of the stage, in digit order. The
+// caller puts a barrier between block_rank and this.
+template <int kItems>
+__device__ __forceinline__ void stage(const uint32_t (&key)[kItems],
+                                      const uint32_t (&id)[kItems],
+                                      const uint32_t (&d)[kItems],
+                                      const uint32_t (&rank)[kItems],
+                                      RankSmem<kItems>& s,
+                                      int items = kItems) {
+  const uint32_t* cnt = s.warp_cnt[threadIdx.x >> 5];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (j >= items) break;
+    const uint32_t pos = s.start[d[j]] + cnt[d[j]] + rank[j];
+    s.key[pos] = key[j];
+    s.idx[pos] = id[j];
+  }
+}
+
+// Short rows: one block a row, every pass inside it. With m = ceil(n /
+// 512) <= 16 keys a thread, thread (warp w, lane l) holds the row's slots
+// w * 32 m + j * 32 + l, j < m, in registers; a pass stages them in digit
+// order and reads them back at the same slots. A slot's index is below n
+// exactly when it holds a key of the row. At most 64 registers a thread,
+// so that two blocks fit an SM.
+__global__ void __launch_bounds__(kSortThreads, 2)
+    row_sort_short_kernel(NannSelectArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  RankSmem<kShortItems>& s = *reinterpret_cast<RankSmem<kShortItems>*>(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row = blockIdx.x;
+  const int n = (int)a.W;
+  const int m = (n + kSortThreads - 1) / kSortThreads;
+  const bool is_float = a.is_float != 0;
+  const uint32_t* x = static_cast<const uint32_t*>(a.x) + row * n;
+  uint32_t key[kShortItems], id[kShortItems], d[kShortItems],
+      rank[kShortItems];
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    const int i = warp * 32 * m + j * 32 + lane;
+    key[j] = j < m && i < n ? radix_key(x[i], is_float) : 0;
+    id[j] = i;
+  }
+  for (int p = 0; p < 4; ++p) {
+    const int shift = 8 * p;
+#pragma unroll
+    for (int j = 0; j < kShortItems; ++j)
+      d[j] = id[j] < (uint32_t)n ? (key[j] >> shift) & (kBins - 1)
+                                 : kBins - 1;
+    uint32_t total = block_rank<kShortItems>(d, rank, s, m);
+    if (tid == kBins - 1) total -= kSortThreads * m - n;   // the padding
+    if (__syncthreads_or(tid < kBins && total == (uint32_t)n)) continue;
+    stage<kShortItems>(key, id, d, rank, s, m);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kShortItems; ++j) {
+      if (j >= m) break;
+      const int i = warp * 32 * m + j * 32 + lane;
+      key[j] = s.key[i];
+      id[j] = s.idx[i];
+    }
+    __syncthreads();
+  }
+  uint32_t* out = static_cast<uint32_t*>(a.out) + row * n;
+  int32_t* perm = a.perm ? a.perm + row * n : nullptr;
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    const int i = warp * 32 * m + j * 32 + lane;
+    if (j < m && i < n) {
+      out[i] = value_of(key[j], id[j], x, is_float);
+      if (perm) perm[i] = (int32_t)id[j];
+    }
+  }
+}
+
+// Tiled rows, 1: each tile's histograms of all four digits, one shared
+// atomic a key and digit (grouping a warp's equal digits by ballots first,
+// as the top-k does, took 3-4 times as long here).
+__global__ void __launch_bounds__(kSortThreads)
+    row_sort_prepare_kernel(SortPlan a) {
+  __shared__ uint32_t hist[4 * kBins];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x, tile = blockIdx.y;
+  const bool is_float = a.is_float != 0;
+  for (int t = tid; t < 4 * kBins; t += kSortThreads) hist[t] = 0;
+  __syncthreads();
+  const uint32_t* x = a.x + row * a.W;
+#pragma unroll
+  for (int r = 0; r < kTileItems; ++r) {
+    const int64_t i = tile * kSortTile + r * kSortThreads + tid;
+    const bool valid = i < a.W;
+    const uint32_t key = valid ? radix_key(x[i], is_float) : 0;
+    if (valid) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        atomicAdd(hist + p * kBins + ((key >> (8 * p)) & (kBins - 1)), 1u);
+    }
+  }
+  __syncthreads();
+  uint32_t* dst = a.tile_all + (row * a.tiles + tile) * 4 * kBins;
+  for (int t = tid; t < 4 * kBins; t += kSortThreads) dst[t] = hist[t];
+}
+
+// Tiled rows, 2 (one block of 256 threads a row): the row's histograms,
+// the bucket bases of every digit and the digits the row sorts by (bit p of
+// flags: digit p varies).
+__global__ void __launch_bounds__(kBins) row_sort_plan_kernel(SortPlan a) {
+  __shared__ uint32_t warp_sum[kBins / 32];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const uint32_t* cnt = a.tile_all + row * a.tiles * 4 * kBins + tid;
+  uint32_t flags = 0;
+  for (int p = 0; p < 4; ++p) {
+    uint32_t total = 0;
+    for (int t = 0; t < a.tiles; ++t) total += cnt[(t * 4 + p) * kBins];
+    const bool whole = __syncthreads_or(total == (uint32_t)a.W);
+    a.bucket[(row * 4 + p) * kBins + tid] = scan_bins(total, warp_sum);
+    if (!whole) flags |= 1u << p;
+  }
+  if (tid == 0) a.flags[row] = flags;
+}
+
+// Pass p of one row: whether it runs, whether it is the first or the last
+// that runs, and which of the two buffers it writes (it reads the other).
+struct Pass {
+  bool runs, first, last;
+  int dst;
+};
+
+__device__ __forceinline__ Pass pass_of(uint32_t flags, int p) {
+  const uint32_t before = flags & ((1u << p) - 1);
+  return {((flags >> p) & 1) != 0, before == 0, (flags >> (p + 1)) == 0,
+          __popc(before) & 1};
+}
+
+// Tiled rows, 3a: the tile's counts of digit p, for a pass that is not the
+// row's first (whose counts prepare wrote).
+__global__ void __launch_bounds__(kSortThreads)
+    row_sort_upsweep_kernel(SortPlan a, int p) {
+  __shared__ uint32_t hist[kBins];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x, tile = blockIdx.y;
+  const Pass ps = pass_of(a.flags[row], p);
+  if (!ps.runs || ps.first) return;
+  if (tid < kBins) hist[tid] = 0;
+  __syncthreads();
+  const uint32_t* src = (ps.dst ? a.keys[0] : a.keys[1]) + row * a.stride;
+#pragma unroll
+  for (int r = 0; r < kTileItems; ++r) {
+    const int64_t i = tile * kSortTile + r * kSortThreads + tid;
+    const bool valid = i < a.W;
+    if (valid) atomicAdd(hist + ((src[i] >> (8 * p)) & (kBins - 1)), 1u);
+  }
+  __syncthreads();
+  if (tid < kBins)
+    a.tile_cnt[(row * a.tiles + tile) * kBins + tid] = hist[tid];
+}
+
+// Tiled rows, 3b: pass p over one tile. Thread (warp w, lane l) holds the
+// tile's keys w * 256 + j * 32 + l, j < 8. The tile's base for digit d is
+// the row's bucket base plus d's counts in the row's earlier tiles; the
+// tile is ranked and staged in digit order in shared memory, and each
+// digit's run is written to its place in one coalesced sweep. The first
+// pass that runs reads the input, the last writes out and perm; where no
+// digit varies, pass 3 writes the row as it is.
+__global__ void __launch_bounds__(kSortThreads)
+    row_sort_downsweep_kernel(SortPlan a, int p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  RankSmem<kTileItems>& s = *reinterpret_cast<RankSmem<kTileItems>*>(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row = blockIdx.x, tile = blockIdx.y;
+  const int64_t lo = tile * kSortTile;
+  const int n = (int)(a.W - lo < kSortTile ? a.W - lo : kSortTile);
+  const uint32_t flags = a.flags[row];
+  const Pass ps = pass_of(flags, p);
+  const uint32_t* x = a.x + row * a.W;
+  uint32_t* out = a.out + row * a.W;
+  int32_t* perm = a.perm ? a.perm + row * a.W : nullptr;
+  if (!ps.runs) {
+    if (p == 3 && flags == 0) {        // every key equal: the row as it is
+      for (int k = tid; k < n; k += kSortThreads) {
+        out[lo + k] = x[lo + k];
+        if (perm) perm[lo + k] = (int32_t)(lo + k);
+      }
+    }
+    return;
+  }
+  const int shift = 8 * p;
+  // the buffers as constants: a parameter array indexed at run time would
+  // be copied to local memory
+  const uint32_t* src_k = (ps.dst ? a.keys[0] : a.keys[1]) + row * a.stride
+                          + lo;
+  const uint32_t* src_i = (ps.dst ? a.ids[0] : a.ids[1]) + row * a.stride + lo;
+  const bool is_float = a.is_float != 0;
+  // the tile's base for digit tid, read first so that its loads overlap
+  // the keys' and the ranking
+  uint32_t base = 0;
+  if (tid < kBins) {
+    const int step = ps.first ? 4 * kBins : kBins;
+    const uint32_t* cnt = ps.first
+        ? a.tile_all + row * a.tiles * 4 * kBins + p * kBins + tid
+        : a.tile_cnt + row * a.tiles * kBins + tid;
+    base = a.bucket[(row * 4 + p) * kBins + tid];
+#pragma unroll 8
+    for (int t = 0; t < tile; ++t) base += cnt[t * step];
+  }
+  uint32_t key[kTileItems], id[kTileItems], d[kTileItems], rank[kTileItems];
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    const int k = warp * (kTileItems * 32) + j * 32 + lane;
+    key[j] = id[j] = 0;
+    if (k < n) {
+      key[j] = ps.first ? radix_key(x[lo + k], is_float) : src_k[k];
+      id[j] = ps.first ? (uint32_t)(lo + k) : src_i[k];
+    }
+    d[j] = k < n ? (key[j] >> shift) & (kBins - 1) : kBins - 1;
+  }
+  block_rank<kTileItems>(d, rank, s);
+  if (tid < kBins) s.base[tid] = base;
+  __syncthreads();
+  stage<kTileItems>(key, id, d, rank, s);
+  __syncthreads();
+  uint32_t* dst_k = (ps.dst ? a.keys[1] : a.keys[0]) + row * a.stride;
+  uint32_t* dst_i = (ps.dst ? a.ids[1] : a.ids[0]) + row * a.stride;
+#pragma unroll
+  for (int r = 0; r < kTileItems; ++r) {
+    const int k = r * kSortThreads + tid;
+    if (k < n) {
+      const uint32_t kk = s.key[k], ii = s.idx[k];
+      const uint32_t dd = (kk >> shift) & (kBins - 1);
+      const uint32_t g = s.base[dd] + ((uint32_t)k - s.start[dd]);
+      if (ps.last) {
+        out[g] = value_of(kk, ii, x, is_float);
+        if (perm) perm[g] = (int32_t)ii;
+      } else {
+        dst_k[g] = kk;
+        dst_i[g] = ii;
+      }
+    }
+  }
+}
+
 bool row_fits(int64_t w) { return w <= INT32_MAX; }
 
 }  // namespace
 
 extern "C" {
 
-// Opts both kernels in to sizeof(Smem) of dynamic shared memory on the
-// current device; called once per device before its first launch. Returns
-// 0 or the CUDA error.
+// Opts every kernel above 48 KB of dynamic shared memory in to what it
+// takes, on the current device; called once per device before its first
+// launch. Returns 0 or the CUDA error.
 int nann_select_init(void) {
-  const void* kernels[] = {(const void*)row_sort_kernel,
-                           (const void*)row_topk_kernel};
-  for (const void* kernel : kernels) {
+  const struct {
+    const void* kernel;
+    size_t bytes;
+  } kernels[] = {
+      {(const void*)row_topk_kernel, sizeof(Smem)},
+      {(const void*)row_sort_short_kernel, sizeof(RankSmem<kShortItems>)},
+      {(const void*)row_sort_downsweep_kernel, sizeof(RankSmem<kTileItems>)}};
+  for (const auto& k : kernels) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Smem));
+        k.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.bytes);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-// Each launches on `stream` and returns cudaGetLastError() after the launch
-// (0 = ok); a row wider than int32 returns cudaErrorInvalidValue.
+// Each launches on `stream` and returns 0 or the first launch's error
+// (cudaGetLastError() after each launch); arguments it does not take return
+// cudaErrorInvalidValue and launch nothing.
 
+// row_sort: rows of up to kShortRow keys sort one block a row and need no
+// scratch; wider rows take the tiled path, which needs scratch_words of
+// tiled_scratch_words(B, W) and launches prepare, plan, then an upsweep
+// (but for digit 0) and a downsweep for each digit: nine kernels.
 int nann_row_sort(const NannSelectArgs* a, void* stream) {
   if (a->B == 0 || a->W == 0) return 0;
-  if (!row_fits(a->W)) return (int)cudaErrorInvalidValue;
-  row_sort_kernel<<<(unsigned)a->B, kThreads, sizeof(Smem),
-                    static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
+  if (!row_fits(a->W) || a->B > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->W <= kShortRow) {
+    row_sort_short_kernel<<<(unsigned)a->B, kSortThreads,
+                            sizeof(RankSmem<kShortItems>), st>>>(*a);
+    return (int)cudaGetLastError();
+  }
+  if (a->scratch == nullptr ||
+      a->scratch_words < tiled_scratch_words(a->B, a->W) ||
+      tiles_of(a->W) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const SortPlan plan = sort_plan(*a);
+  const dim3 grid((unsigned)a->B, (unsigned)plan.tiles);
+  row_sort_prepare_kernel<<<grid, kSortThreads, 0, st>>>(plan);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  row_sort_plan_kernel<<<(unsigned)a->B, kBins, 0, st>>>(plan);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int p = 0; p < 4; ++p) {
+    if (p > 0) {
+      row_sort_upsweep_kernel<<<grid, kSortThreads, 0, st>>>(plan, p);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    row_sort_downsweep_kernel<<<grid, kSortThreads,
+                                sizeof(RankSmem<kTileItems>), st>>>(plan, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int nann_row_topk(const NannSelectArgs* a, void* stream) {
@@ -474,6 +901,25 @@ int nann_row_topk(const NannSelectArgs* a, void* stream) {
   row_topk_kernel<<<(unsigned)a->B, kThreads, sizeof(Smem),
                     static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// The tiled path's scratch in uint32 words, as the wrapper sizes it.
+int64_t nann_row_sort_scratch_words(int64_t B, int64_t W) {
+  return tiled_scratch_words(B, W);
+}
+
+// Blocks of a row_sort path (0 short, 1 the tiled downsweep) that fit an
+// SM at once, after nann_select_init; a negative number is a CUDA error.
+int nann_row_sort_blocks_per_sm(int path) {
+  int n = 0;
+  const cudaError_t err =
+      path == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &n, row_sort_short_kernel, kSortThreads,
+                      sizeof(RankSmem<kShortItems>))
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &n, row_sort_downsweep_kernel, kSortThreads,
+                      sizeof(RankSmem<kTileItems>));
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // The struct's size and its last field's offset, held against SelectArgs

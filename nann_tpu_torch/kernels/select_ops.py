@@ -17,7 +17,9 @@ Keys are int32 or float32; -0.0 and +0.0 tie, as they compare equal.
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain version beside it, which is also what the kernel is held
 against on the card. Shapes, types and devices are checked on both. Each
-wrapper's `.launches` counts its kernel's launches.
+wrapper's `.launches` counts its calls that launched: one device kernel a
+call for `row_topk` and the short rows of `row_sort`, nine (a tiled row
+sort's prepare, plan, upsweeps and downsweeps) for rows above SHORT_ROW.
 
 `selects(plain)` gives the sort, the top-k and the element gather as one
 object, the kernels (the default) or the plain versions, so that a caller
@@ -44,7 +46,31 @@ class SelectArgs(ctypes.Structure):
                 ("perm", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
                 ("B", ctypes.c_int64),
                 ("W", ctypes.c_int64), ("K", ctypes.c_int64),
+                ("scratch_words", ctypes.c_int64),
                 ("is_float", ctypes.c_int32), ("largest", ctypes.c_int32)]
+
+
+# The row sort's paths, mirroring csrc/select_ops.cu: rows of up to
+# SHORT_ROW keys sort in one block ("short", no scratch); wider rows in
+# tiles of SORT_TILE keys, one block a tile ("tiled").
+SORT_PATHS = ("short", "tiled")
+SHORT_ROW = 8192          # kShortRow
+SORT_TILE = 4096          # kSortTile
+_BINS = 256               # kBins
+
+
+def _sort_plan(B: int, W: int):
+    """(path, tiles, scratch_words) of a row sort of [B, W], as the kernel
+    library picks it from the width: the path, the tiles a row is cut into
+    and the int32 words of scratch it needs (tiled_scratch_words in the
+    .cu: keys and indices twice, the tiles' histograms of four digits and
+    of one, the bucket bases and the flags)."""
+    if W <= SHORT_ROW:
+        return "short", 1, 0
+    tiles = -(-W // SORT_TILE)
+    words = (4 * B * tiles * SORT_TILE + B * tiles * 5 * _BINS
+             + B * 4 * _BINS + B)
+    return "tiled", tiles, words
 
 
 # ------------------------------------------------------------ plain versions
@@ -108,6 +134,11 @@ def _library() -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.nann_select_init.argtypes = []
     lib.nann_select_init.restype = ctypes.c_int
+    lib.nann_row_sort_scratch_words.argtypes = [ctypes.c_int64,
+                                                ctypes.c_int64]
+    lib.nann_row_sort_scratch_words.restype = ctypes.c_int64
+    lib.nann_row_sort_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.nann_row_sort_blocks_per_sm.restype = ctypes.c_int
     lib.nann_select_error_string.argtypes = [ctypes.c_int]
     lib.nann_select_error_string.restype = ctypes.c_char_p
     return lib
@@ -136,8 +167,20 @@ def _launch(fn_name: str, args: SelectArgs, device: torch.device) -> None:
 
 
 def _scratch(B: int, n: int, device: torch.device) -> torch.Tensor:
-    """Radix keys and indices, twice: [4, B, n] int32."""
+    """The top-k's radix keys and indices, twice: [4, B, n] int32."""
     return torch.empty((4, B, n), dtype=torch.int32, device=device)
+
+
+def blocks_per_sm(path: str, device: torch.device) -> int:
+    """Blocks of a row_sort path that fit one SM of `device` at once (the
+    tiled path's: its downsweep's)."""
+    _init(device.index if device.index is not None
+          else torch.cuda.current_device())
+    n = _library().nann_row_sort_blocks_per_sm(SORT_PATHS.index(path))
+    if n < 0:
+        raise RuntimeError("nann_row_sort_blocks_per_sm failed: "
+                           + _library().nann_select_error_string(-n).decode())
+    return n
 
 
 # ---------------------------------------------------------------- wrappers
@@ -146,21 +189,26 @@ def _scratch(B: int, n: int, device: torch.device) -> torch.Tensor:
 def row_sort(x: torch.Tensor, with_perm: bool = False):
     """Each row of an int32 or float32 x [B, W] sorted ascending, stable
     (equal keys keep the lower index first); with_perm also gives the int32
-    permutation: (values, perm)."""
+    permutation: (values, perm). One call is one launch in `.launches`, of
+    one device kernel on the short path and nine on the tiled path
+    (`_sort_plan`)."""
     _check_rows(x)
     if x.device.type == "cpu":
         return row_sort_plain(x, with_perm)
     B, W = x.shape
+    words = _sort_plan(B, W)[2]
     out = torch.empty_like(x)
     perm = torch.empty((B, W), dtype=torch.int32, device=x.device) \
         if with_perm else None
     if x.numel():
-        scratch = _scratch(B, W, x.device)
+        scratch = torch.empty(words, dtype=torch.int32, device=x.device) \
+            if words else None
         _launch("nann_row_sort", SelectArgs(
             x=x.data_ptr(), out=out.data_ptr(),
             perm=perm.data_ptr() if with_perm else None,
-            scratch=scratch.data_ptr(), B=B, W=W,
-            is_float=int(x.dtype == torch.float32)), x.device)
+            scratch=scratch.data_ptr() if words else None, B=B, W=W,
+            scratch_words=words, is_float=int(x.dtype == torch.float32)),
+            x.device)
         row_sort.launches += 1
     return (out, perm) if with_perm else out
 

@@ -340,11 +340,21 @@ def _assert_bits_equal(got, want):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+_T, _S = so.SORT_TILE, so.SHORT_ROW
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32],
                          ids=["int32", "float32"])
-@pytest.mark.parametrize("W", [1, 128, 2970, 33992])
-def test_row_sort_matches_plain(cuda, dtype, W):
-    x = _edge_rows(6, W, dtype, W).to(cuda)
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("W", [1, 128, 2970, _T - 1, _T, _T + 1, _S,
+                               2 * _T + 1, 3 * _T - 1, 3 * _T, 3 * _T + 1,
+                               33992, 100_000])
+def test_row_sort_matches_plain(cuda, dtype, B, W):
+    """Every boundary of the design: short rows (one block) up to S = 2T,
+    then tiles of T keys (S + 1 = 2T + 1 is the first tiled width, three
+    tiles, the last holding one key), the search's widths and the ops
+    layer's [1, 100,000]."""
+    x = _edge_rows(B, W, dtype, W).to(cuda)
     before = so.row_sort.launches
     got, perm = so.row_sort(x, with_perm=True)
     assert so.row_sort.launches == before + 1
@@ -352,6 +362,62 @@ def test_row_sort_matches_plain(cuda, dtype, W):
     _assert_bits_equal(got, want)
     torch.testing.assert_close(perm, want_perm, rtol=0, atol=0)
     _assert_bits_equal(so.row_sort(x), want)
+
+
+@pytest.mark.parametrize("W", [5000, 3 * _T + 5], ids=["short", "tiled"])
+@pytest.mark.parametrize("kind", ["equal", "low_digit", "middle_digits",
+                                  "tagged"])
+def test_row_sort_skips_shared_digits(cuda, W, kind):
+    """Rows whose keys share digits: every digit (no pass runs: the row as
+    it is), all but the lowest, the two outer ones, and the list merge's
+    tagged keys (id << 1 | flag, high digits shared)."""
+    gen = torch.Generator().manual_seed(W)
+    B = 3
+    if kind == "equal":
+        x = torch.full((B, W), -7, dtype=torch.int32)
+    elif kind == "low_digit":
+        x = torch.randint(0, 256, (B, W), generator=gen, dtype=torch.int32)
+    elif kind == "middle_digits":
+        x = torch.randint(0, 2**16, (B, W), generator=gen,
+                          dtype=torch.int32) << 8
+    else:
+        x = (torch.randint(0, 100_000, (B, W), generator=gen,
+                           dtype=torch.int32) << 1) | torch.randint(
+                               0, 2, (B, W), generator=gen, dtype=torch.int32)
+    x = x.to(cuda)
+    got, perm = so.row_sort(x, with_perm=True)
+    want, want_perm = so.row_sort_plain(x, with_perm=True)
+    _assert_bits_equal(got, want)
+    torch.testing.assert_close(perm, want_perm, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("W", [2970, _S, 33992])
+def test_row_sort_is_deterministic(cuda, W):
+    """Two calls give the same bits: a key's place never depends on which
+    block ran first."""
+    x = _edge_rows(64, W, torch.float32, W + 1).to(cuda)
+    first = so.row_sort(x, with_perm=True)
+    second = so.row_sort(x, with_perm=True)
+    _assert_bits_equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_row_sort_plan_matches_the_library(cuda):
+    """`_sort_plan`'s scratch is the library's, the library refuses a
+    scratch one word short, and both paths fit two blocks on an SM."""
+    lib = so._library()
+    for B, W in [(1, _S + 1), (3, 3 * _T), (64, 33992), (1, 100_000)]:
+        assert lib.nann_row_sort_scratch_words(B, W) == so._sort_plan(B, W)[2]
+    x = torch.zeros((2, 3 * _T), dtype=torch.int32, device=cuda)
+    words = so._sort_plan(2, 3 * _T)[2]
+    scratch = torch.empty(words, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        so._launch("nann_row_sort", so.SelectArgs(
+            x=x.data_ptr(), out=torch.empty_like(x).data_ptr(),
+            scratch=scratch.data_ptr(), B=2, W=3 * _T,
+            scratch_words=words - 1), x.device)
+    for path in so.SORT_PATHS:
+        assert so.blocks_per_sm(path, cuda) >= 2
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32],

@@ -295,10 +295,42 @@ def test_struct_guard_raises_on_another_layout(layout):
 
 
 def test_args_struct_layout():
-    """Four pointers, three 8-byte counts, then two 4-byte flags."""
-    assert ctypes.sizeof(so.SelectArgs) == 64
-    assert so.SelectArgs.is_float.offset == 56
-    assert so.SelectArgs.largest.offset == 60
+    """Four pointers, four 8-byte counts, then two 4-byte flags."""
+    assert ctypes.sizeof(so.SelectArgs) == 72
+    assert so.SelectArgs.scratch_words.offset == 56
+    assert so.SelectArgs.is_float.offset == 64
+    assert so.SelectArgs.largest.offset == 68
+
+
+# ------------------------------------------------------ the row sort's plan
+
+_T, _S = so.SORT_TILE, so.SHORT_ROW
+
+
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("W,path,tiles", [
+    (1, "short", 1), (_T - 1, "short", 1), (_T, "short", 1),
+    (_T + 1, "short", 1), (_S, "short", 1), (_S + 1, "tiled", 3),
+    (3 * _T - 1, "tiled", 3), (3 * _T, "tiled", 3), (3 * _T + 1, "tiled", 4),
+    (33992, "tiled", 9), (100_000, "tiled", 25)])
+def test_sort_plan_by_width(B, W, path, tiles):
+    """The width picks the path; a tiled row is cut into ceil(W / T) tiles,
+    and its scratch covers the last word the kernels index: the second
+    index buffer's last slot of the last row, then the tile counts of every
+    digit and of one digit, the bucket bases and the flags."""
+    got_path, got_tiles, words = so._sort_plan(B, W)
+    assert (got_path, got_tiles) == (path, tiles)
+    if path == "short":
+        assert words == 0
+        return
+    stride = tiles * _T
+    assert stride >= W and stride - W < _T
+    last_id = 3 * B * stride + (B - 1) * stride + (W - 1)
+    tile_all_end = 4 * B * stride + B * tiles * 4 * 256
+    tile_cnt_end = tile_all_end + B * tiles * 256
+    bucket_end = tile_cnt_end + B * 4 * 256
+    assert last_id < 4 * B * stride <= tile_all_end
+    assert words == bucket_end + B
 
 
 @pytest.mark.parametrize("plain", [False, True])
