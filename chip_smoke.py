@@ -34,11 +34,16 @@ script exits non-zero:
              of torch.sort(stable=True) or torch.topk on the same inputs. The
              sort also at its paths' boundaries (short rows up to 8,192 keys,
              tiles of 4,096) and at [1, 100,000], each case with its path
-             and tile count, and twice on the same rows (equal bits).
+             and tile count, and twice on the same rows (equal bits); the
+             top-k likewise at its paths' boundaries (k = W, k above 8,192)
+             and on tie groups that span tiles (every key equal, a run of
+             -inf longer than a tile holding the k-th key, float32 keys that
+             all share their first digit), twice on the same rows.
              Every byte-map and select case, and its library call, is
              timed twice: CUDA events around 10 calls (host work included)
              and its device time per call from torch.profiler (every device
-             kernel of a call: a tiled sort launches nine)
+             kernel of a call: a tiled sort launches nine, a tiled top-k
+             ten)
   4 bundle   random serving-width weights (seeded) and 100,000 items of width
              64; HNSW graph (M=32, ef_construction=64); the bundle is written
              with the port's writer to a temporary directory and read back
@@ -48,7 +53,8 @@ script exits non-zero:
              of common ids within the bfloat16 tolerance; the same search with
              the kernel scorer and the plain selects, whose ids, scores and
              num_scoring must equal the kernel path's; recall@200 against the
-             brute-force oracle, whose top-k runs through row_topk
+             brute-force oracle, whose top-k runs through row_topk and must
+             give the ids of the plain top-k
   6 engine   the serving engine on the bundle (every bucket warmed), 64
              requests from 4 threads, each answer equal to the direct search
   7 int8     the same bundle loaded with dtype="int8": the 64 queries on the
@@ -171,7 +177,9 @@ SORT_CASES = [("merge, level 1", 64, 2970, False),
               ("tiles, 3T + 1", 64, 3 * _T + 1, False),
               ("ops bitmap", 1, NUM_ITEMS, False)]
 # (label, W, k, largest, dtype): every _masked_topk of a search, the "topk"
-# and "approx" selections, the wide hop's selection, the oracle
+# and "approx" selections, the wide hop's selection, the oracle; then the
+# boundaries of its paths (short rows up to SHORT_ROW keys, k = W, k above
+# SHORT_ROW through the tiled sort)
 TOPK_CASES = [("enter points", 90, 90, True, torch.float32),
               ("merge, level 1", 2970, 200, True, torch.float32),
               ("merge, level 1 (byte-map)", 2880, 200, True, torch.float32),
@@ -182,15 +190,27 @@ TOPK_CASES = [("enter points", 90, 90, True, torch.float32),
               ("select 'topk'", 33992, 4096, False, torch.int32),
               ("select 'approx'", 33992, 4096, False, torch.float32),
               ("wide selection", 25600, 8192, True, torch.float32),
-              ("oracle", NUM_ITEMS, 200, True, torch.float32)]
+              ("oracle", NUM_ITEMS, 200, True, torch.float32),
+              ("short rows, S", _S, 200, True, torch.float32),
+              ("tiles, S + 1", _S + 1, 200, True, torch.float32),
+              ("tiles, k = W", _S + 1, _S + 1, True, torch.float32),
+              ("tiles, k = S + 1", 33992, _S + 1, False, torch.int32)]
+# (label, kind, W, k): tie groups across the tiled top-k's tiles (tie_rows)
+TOPK_TIE_CASES = [("every key equal", "equal", 33992, 4096),
+                  ("-inf run over 7 tiles, k-th in it", "neginf_run", 33992,
+                   6000),
+                  ("first digit shared", "one_digit", 33992, 4096)]
 # (label, W, K): the lane gathers (gather_elems with hi = W - 1):
 # _masked_topk's id gather, the approx key gather, the wide hop's neighbour
 # gather
 TAKE_CASES = [("_masked_topk ids", 4496, 400), ("approx keys", 33992, 4096),
               ("wide neighbours", 25600, 8192)]
 # row_sort calls of a list search on this workload: the merge and the
-# "exact" selection of each of its 4 hops (level 1, three ground hops)
+# "exact" selection of each of its 4 hops (level 1, three ground hops); its
+# row_topk calls: the enter points, the merge and the candidates of each
+# hop, and the final merge
 SORTS_PER_LIST_SEARCH = 8
+TOPKS_PER_LIST_SEARCH = 10
 MAIN_SELECT = {"row_sort": "merge, ground 3",
                "row_topk": "merge, ground 2-3"}
 
@@ -254,22 +274,21 @@ def device_events(fn):
 
 def device_breakdown(fn):
     """Device milliseconds of one fn() by kernel family from torch.profiler:
-    the frontier scorer, the row sort (every `row_sort_*` kernel of a call)
-    and top-k (select_ops), the gathers
-    and scatter of visited_ops (the lane gathers included), other sorts
-    (PyTorch's), everything else. None where the profiler records no device
-    time."""
+    the frontier scorer, the row sort (every `row_sort_*` kernel of a call),
+    the row top-k (every `row_topk_*` kernel), the gathers and scatter of
+    visited_ops (the lane gathers included), other sorts (PyTorch's),
+    everything else. None where the profiler records no device time."""
     events = device_events(fn)
     if events is None:
         return None
-    groups = {"frontier_scorer": 0.0, "select_ops": 0.0, "visited_ops": 0.0,
-              "sort": 0.0, "other": 0.0}
+    groups = {"frontier_scorer": 0.0, "row_sort": 0.0, "row_topk": 0.0,
+              "visited_ops": 0.0, "sort": 0.0, "other": 0.0}
     for key, ms, _count in events:
         name = key.lower()
         group = "frontier_scorer" if "frontier_scorer" in name else \
-            "select_ops" if any(k in name for k in (
-                "row_sort_", "row_topk_kernel")) \
-            else "visited_ops" if any(k in name for k in (
+            "row_sort" if "row_sort_" in name else \
+            "row_topk" if "row_topk_" in name else \
+            "visited_ops" if any(k in name for k in (
                 "gather_elems", "gather_rows", "scatter_set")) else \
             "sort" if "sort" in name else "other"
         groups[group] += ms
@@ -634,10 +653,12 @@ def edge_rows(B, W, dtype, gen):
 def check_select_kernels(dev):
     """Phase 3, third part: row_sort and row_topk against their plain
     versions, values and indices bit for bit, at the TPU probes' shapes (the
-    probe's inputs, from its numpy seed) and at the search's (SORT_CASES,
-    TOPK_CASES) on salted rows. Bounds: each input read once, each output
-    written once. Library: torch.sort(stable=True), torch.topk. Returns
-    {kernel name: [cases]}."""
+    probe's inputs, from its numpy seed), at the search's and at their
+    paths' boundaries (SORT_CASES, TOPK_CASES) on salted rows, and the
+    top-k on tie groups across tiles (TOPK_TIE_CASES); each twice on the
+    same rows at three widths (equal bits). Bounds: each input read once,
+    each output written once. Library: torch.sort(stable=True), torch.topk.
+    Returns {kernel name: [cases]}."""
     so = select_ops
     rng = np.random.default_rng(0)
     rng.integers(0, 250, PROBE_ITEMS)        # the probe's table, then its ids
@@ -661,13 +682,15 @@ def check_select_kernels(dev):
 
     def topk_case(label, x, k, largest):
         kind = str(x.dtype).replace("torch.", "")
+        path, tiles, _ = so._topk_plan(*x.shape, k)
         return hold_exact(
             "row_topk", f"{label}: {kind} {list(x.shape)} k {k}"
-            + ("" if largest else " smallest"),
+            + ("" if largest else " smallest") + f" ({path}, {tiles} "
+            f"tile{'s' if tiles > 1 else ''})",
             lambda: so.row_topk(x, k, largest),
             lambda: so.row_topk_plain(x, k, largest),
             lambda: torch.topk(x, k, largest=largest),
-            x.numel() * 4 + x.shape[0] * k * 8)
+            x.numel() * 4 + x.shape[0] * k * 8, symbols=("row_topk_",))
 
     print(f"   row_sort blocks an SM: "
           f"{ {p: so.blocks_per_sm(p, dev) for p in so.SORT_PATHS} }")
@@ -685,7 +708,33 @@ def check_select_kernels(dev):
     topks = [topk_case("probe build_topk", idx2d.reshape(1, -1), 128, True)]
     topks += [topk_case(label, edge_rows(B, W, dt, gen), k, largest)
               for label, W, k, largest, dt in TOPK_CASES]
+    topks += [topk_case(label, tie_rows(B, W, kind, gen), k, True)
+              for label, kind, W, k in TOPK_TIE_CASES]
+    for W, k in ((4496, 400), (33992, 4096), (NUM_ITEMS, 200)):
+        x = edge_rows(B, W, torch.float32, gen)
+        if not same_bits(so.row_topk(x, k), so.row_topk(x, k)):
+            raise AssertionError(f"row_topk [{B}, {W}] k {k}: two calls "
+                                 f"differ")
     return {"row_sort": sorts, "row_topk": topks}
+
+
+def tie_rows(B, W, kind, gen):
+    """float32 rows whose tie groups span the tiled top-k's tiles: every
+    key equal; random keys but a run of -inf from key 2,000 to W - 2,000
+    (seven tiles of 4,096 at W = 33,992), so that the k-th largest of a k
+    above the 4,000 finite keys is -inf inside the run and its ties are
+    taken from the run's start; keys in [1, 2), which share their first
+    digit, with every seventh 1.5."""
+    dev = gen.device
+    if kind == "equal":
+        return torch.full((B, W), 0.25, device=dev)
+    if kind == "neginf_run":
+        x = torch.randn((B, W), generator=gen, device=dev)
+        x[:, 2000:W - 2000] = float("-inf")
+        return x
+    x = 1 + torch.rand((B, W), generator=gen, device=dev)
+    x[:, ::7] = 1.5
+    return x
 
 
 def mean_overlap(a: np.ndarray, b: np.ndarray) -> float:
@@ -883,12 +932,13 @@ def run(dev: torch.device, tmp: str) -> int:
         if not all(path_launches.values()):
             raise AssertionError(f"a kernel of the main path was not "
                                  f"launched: {path_launches}")
-        # row_sort counts calls: one device kernel a call on short rows,
-        # nine on tiled rows
-        if path_launches["row_sort"] != SORTS_PER_LIST_SEARCH:
-            raise AssertionError(f"row_sort was called "
-                                 f"{path_launches['row_sort']} times in a "
-                                 f"list search, not {SORTS_PER_LIST_SEARCH}")
+        # row_sort and row_topk count calls: one device kernel a call on
+        # short rows; a tiled sort launches nine, a tiled top-k ten
+        for op, want in (("row_sort", SORTS_PER_LIST_SEARCH),
+                         ("row_topk", TOPKS_PER_LIST_SEARCH)):
+            if path_launches[op] != want:
+                raise AssertionError(f"{op} was called {path_launches[op]} "
+                                     f"times in a list search, not {want}")
         # one scorer (the kernel), the sorts, top-ks and element gathers on
         # their plain versions
         selects = select_ops.selects
@@ -950,12 +1000,25 @@ def run(dev: torch.device, tmp: str) -> int:
         if row_topk.launches != 1:
             raise AssertionError("the oracle's top-k did not run through "
                                  "row_topk")
+        # the same oracle with the plain top-k: equal ids, so that the
+        # recall below is the one plain selects give on this graph
+        select_ops.row_topk = select_ops.row_topk_plain
+        try:
+            plain_idx, _ = brute_force_topk(params, state, mcfg, users,
+                                            index.item_embs, k=k_final)
+        finally:
+            select_ops.row_topk = row_topk
+        same_oracle = torch.equal(top_idx, plain_idx)
         oracle_ids = index.item_ids[top_idx.long()].cpu().numpy()
         recall = float(np.mean([calc_pr(o, g[g >= 0])[1]
                                 for o, g in zip(oracle_ids, items_k)]))
         print(f"   graph recall@{k_final} vs brute-force oracle: {recall:.4f} "
               f"(oracle {oracle_s * 1e3:.1f} ms through the scorer kernel "
-              f"and row_topk)")
+              f"and row_topk; its ids equal the plain top-k's: "
+              f"{same_oracle})")
+        if not same_oracle:
+            raise AssertionError("the oracle's row_topk differs from the "
+                                 "plain top-k")
 
     with phase("6 engine"):
         score_frontier.launches = 0
@@ -1123,7 +1186,9 @@ def run(dev: torch.device, tmp: str) -> int:
             if bd is not None:
                 print(f"   filter half, {label}: "
                       f"{sum(bd.values()) - bd['frontier_scorer']:.3f} ms of "
-                      f"device time (select kernels {bd['select_ops']:.3f}, "
+                      f"device time (select kernels "
+                      f"{bd['row_sort'] + bd['row_topk']:.3f}: row_sort "
+                      f"{bd['row_sort']:.3f}, row_topk {bd['row_topk']:.3f}; "
                       f"visited_ops kernels {bd['visited_ops']:.3f}, other "
                       f"sorts {bd['sort']:.3f}, other {bd['other']:.3f})")
         print(f"   top-{k_final} overlap byte-map kernel vs plain: "

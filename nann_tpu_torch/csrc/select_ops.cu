@@ -31,7 +31,7 @@
 // Bound on an H100: each is data movement with a few integer operations per
 // element, so its least time is the bytes it must move over 3.35 TB/s: the
 // input read once and the outputs written once. A sort of B rows of W keys
-// moves 8 B W bytes (12 B W with the permutation).
+// moves 8 B W bytes (12 B W with the permutation); a top-k 4 B W + 8 B k.
 //
 // row_sort: an LSD radix sort of 32-bit keys in four 8-bit digits. A digit
 // every key of the row shares is skipped (a row of small ids shares its
@@ -72,23 +72,43 @@
 //   would let four blocks share an SM, its registers let two
 //   (nann_row_sort_blocks_per_sm says).
 //
-// What each path does about the old kernel's costs (one block of 1024
-// threads a row, 140 KB of shared memory): the tiles fill all 132 SMs and
-// several blocks share an SM; a key's rank costs eight ballots and one
-// shared atomic per group of equal digits in a warp (its warp's running
-// count), and the block's scan is over [16 warps x 256 digits] counters, an
-// eighth of the old [128 slices x 256] for the same 4096 keys; the stores
-// are runs of equal digits, coalesced, where the old kernel wrote each key
-// alone.
+// row_topk: a radix select of the k-th key from the top digit down, then a
+// stable sort of the k winners. Two paths, by width as the sort's (mirrored
+// by `_topk_plan`):
 //
-// row_topk is a radix select over the row: four passes of a histogram of
-// one digit among the keys that share the digits found so far give the
-// k-th key T and how many of its ties are taken. One more pass compacts the
-// winners in index order (the keys below T, then T's ties while they last,
-// with block-wide ballot scans), and a block radix sort (one block of 1024
-// threads, 32-key slices ranked by ballots) orders those k winners. The row
-// is only read, so a row of 100,000 (the oracle's) needs no room in shared
-// memory.
+// - short rows (W <= kShortRow, every top-k of a search's hops): one block
+//   of 512 threads a row holds the row in registers, as the short sort does.
+//   Digits every key shares (the AND and the OR of the keys agree there) are
+//   taken without a pass; each other digit costs a histogram, in shared
+//   memory, of the keys that share the digits found so far, and the select
+//   stops when the bucket's keys are all taken. The winners are compacted in
+//   index order into shared memory and sorted there by the short sort's own
+//   passes (block_sort_short). k == W is the sort alone. One device kernel a
+//   call; global memory is read once and written once. Rows of 90 or 400
+//   keys take the same block: 64 such rows are one wave on 132 SMs, so
+//   several rows a block would not shorten it.
+// - tiled rows (W > kShortRow: the oracle, the "topk" and "approx"
+//   selections, the wide selection): the grid is (B, tiles of 4096) as in the
+//   tiled sort, so every SM works. For each digit from the top: a histogram
+//   kernel (each tile's counts of the digit among the keys that share the
+//   row's prefix so far, stored whole) and a plan kernel (one block a row:
+//   the tiles' counts summed, the bucket of the k-th key, each tile's keys
+//   below it and in it). A lower digit that the keys in the bucket all share
+//   (their AND and OR, stored by the histogram kernel, agree there) is taken
+//   without a pass, so a tie group of any size costs one histogram after the
+//   one that found it. A row is done when its bucket's keys are all taken,
+//   or when every digit is known (then the bucket is the k-th key's ties:
+//   both "exact"), or, for k <= kShortRow, when the bucket fits one block
+//   (kCandidates keys). Later passes of a done row return at once. A filter
+//   kernel then writes, in index order, the certain winners (below the
+//   bucket, and in exact rows the first ties while they last) and the
+//   bucket's keys as candidates; a tile's place is the sum of the row's
+//   earlier tiles' counts, so no atomics cross blocks and nothing depends on
+//   which block ran first. A finish block a row selects among the
+//   candidates as the short path does and sorts the k winners on chip. For
+//   k > kShortRow the winners go through the tiled row sort instead, and a
+//   gather kernel writes the values and indices. Ten device kernels a call
+//   (nineteen for k > kShortRow).
 //
 // Every kernel above 48 KB of dynamic shared memory opts in once per device
 // (nann_select_init), not on every launch.
@@ -107,36 +127,22 @@ struct NannSelectArgs {
   void* out;              // row_sort: [B, W]; row_topk: [B, K]
   int32_t* perm;          // row_sort: permutation [B, W] or null;
                           // row_topk: indices [B, K]
-  uint32_t* scratch;      // row_sort: scratch_words (rows above
-                          // kShortRow, else none); row_topk: [4, B, K]
+  uint32_t* scratch;      // rows above kShortRow: scratch_words (row_sort:
+                          // tiled_scratch_words; row_topk:
+                          // topk_scratch_words), else none
   int64_t B;              // rows
   int64_t W;              // keys per row
   int64_t K;              // row_topk: k
-  int64_t scratch_words;  // row_sort: words of the scratch
+  int64_t scratch_words;  // words of the scratch
   int32_t is_float;       // 1: float32 keys, 0: int32 keys
   int32_t largest;        // row_topk: 1 = the k largest, 0 = the k smallest
 };
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
-constexpr int kItems = 4;                     // keys a thread moves a round
-constexpr int kTile = kItems * kThreads;      // keys a round moves
-constexpr int kSlices = kItems * kWarps;      // 32-key slices of a round
-constexpr int kQuarters = kThreads / kBins;   // threads per digit in a scan
 constexpr unsigned kFull = 0xffffffffu;
-
-// 140,560 bytes: dynamic shared memory, one block per SM
-struct Smem {
-  uint32_t slice_cnt[kSlices][kBins];    // per-slice digit counts, then offsets
-  uint32_t quarter_tot[kQuarters][kBins];  // digit counts of a quarter's slices
-  uint32_t hist[4][kBins];               // digit histograms of the keys sorted
-  uint32_t bucket[kBins];                // running base of each digit's bucket
-  uint32_t warp_tot[2][kWarps];          // per-warp totals of the compaction
-  uint32_t scal[4];                      // values one warp hands the block
-};
+constexpr uint32_t kSignBit = 0x80000000u;
 
 __device__ __forceinline__ uint32_t lanemask_lt() {
   uint32_t m;
@@ -146,11 +152,11 @@ __device__ __forceinline__ uint32_t lanemask_lt() {
 
 // The unsigned key whose order is the value order of an int32 or float32.
 __device__ __forceinline__ uint32_t radix_key(uint32_t bits, bool is_float) {
-  if (!is_float) return bits ^ 0x80000000u;
+  if (!is_float) return bits ^ kSignBit;
   const uint32_t mag = bits & 0x7fffffffu;
   if (mag == 0) bits = 0;                        // -0.0 ties with +0.0
   else if (mag > 0x7f800000u) bits = 0x7fc00000u;   // one NaN, above +inf
-  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return (bits & kSignBit) ? ~bits : (bits | kSignBit);
 }
 
 // The bits of the value a sorted key came from: an int32's from its key
@@ -159,7 +165,7 @@ __device__ __forceinline__ uint32_t radix_key(uint32_t bits, bool is_float) {
 __device__ __forceinline__ uint32_t value_of(uint32_t key, uint32_t idx,
                                              const uint32_t* x,
                                              bool is_float) {
-  return is_float ? x[idx] : key ^ 0x80000000u;
+  return is_float ? x[idx] : key ^ kSignBit;
 }
 
 // The lanes of the warp whose d agrees with this lane's in the low kBits
@@ -174,275 +180,6 @@ __device__ __forceinline__ unsigned warp_peers(uint32_t d) {
     peers &= ((d >> b) & 1) ? bal : ~bal;
   }
   return peers;
-}
-
-// hist[bin] += 1 for each lane with pred, one atomic per distinct bin of the
-// warp. Every lane of the warp calls it. A full warp groups its lanes by
-// ballots; a partial one (the later passes of the top-k's select, where few
-// keys still match) by __match_any_sync over its active lanes, which is
-// cheaper there.
-__device__ __forceinline__ void warp_hist_add(uint32_t* hist, uint32_t bin,
-                                              bool pred) {
-  const unsigned active = __ballot_sync(kFull, pred);
-  unsigned peers;
-  if (active == kFull) {
-    peers = warp_peers<8>(bin);
-  } else {
-    if (!pred) return;
-    peers = __match_any_sync(active, bin);
-  }
-  if ((peers & lanemask_lt()) == 0) atomicAdd(hist + bin, __popc(peers));
-}
-
-// Warp 0 only. out[b] = in[0] + ... + in[b - 1] over 256 bins (in and out may
-// be the same array). Returns (on every lane) whether one bin holds all n.
-__device__ bool warp_scan_bins(const uint32_t* in, uint32_t* out,
-                               uint32_t n) {
-  const int lane = threadIdx.x & 31;
-  uint32_t v[kBins / 32], sum = 0;
-  bool whole = false;
-#pragma unroll
-  for (int j = 0; j < kBins / 32; ++j) {
-    v[j] = in[lane * (kBins / 32) + j];
-    sum += v[j];
-    whole |= v[j] == n;
-  }
-  uint32_t incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t t = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += t;
-  }
-  uint32_t run = incl - sum;
-#pragma unroll
-  for (int j = 0; j < kBins / 32; ++j) {
-    out[lane * (kBins / 32) + j] = run;
-    run += v[j];
-  }
-  return __any_sync(kFull, whole);
-}
-
-// Stable LSD radix sort of n (key, index) pairs of one row, by the whole
-// block. The pairs are in (ka, ia), kb and ib are as long; s.hist holds the
-// four digits' histograms and s.slice_cnt is zero. Returns 0 when the sorted
-// pairs end in (ka, ia), 1 when in (kb, ib). Global memory is read and
-// written by other threads of the block between passes, so it is read with
-// plain loads, after a barrier.
-//
-// A round moves kTile keys: thread t holds keys base + j * kThreads + t, so
-// slice j * kWarps + warp holds 32 consecutive keys and the slices run in
-// index order. A key's rank among equal digits of its slice comes from nine
-// ballots (warp_peers); the slices' counts of each digit are scanned in slice
-// order by kQuarters threads (a quarter of the slices each) on top of the
-// digit's bucket base.
-__device__ int block_radix_sort(uint32_t* ka, uint32_t* ia, uint32_t* kb,
-                                uint32_t* ib, int n, Smem& s) {
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int digit = tid & (kBins - 1), quarter = tid / kBins;
-  constexpr int kPerQuarter = kSlices / kQuarters;
-  uint32_t *src_k = ka, *src_i = ia, *dst_k = kb, *dst_i = ib;
-  int cur = 0;
-  for (int p = 0; p < 4; ++p) {
-    __syncthreads();
-    if (warp == 0) {
-      const bool whole = warp_scan_bins(s.hist[p], s.bucket, (uint32_t)n);
-      if (tid == 0) s.scal[0] = whole;
-    }
-    __syncthreads();
-    if (s.scal[0]) continue;          // every key has this digit: no move
-    const int shift = 8 * p;
-    for (int base = 0; base < n; base += kTile) {
-      uint32_t key[kItems], id[kItems], d[kItems], rank[kItems];
-#pragma unroll
-      for (int j = 0; j < kItems; ++j) {
-        const int i = base + j * kThreads + tid;
-        d[j] = kBins;
-        if (i < n) {
-          key[j] = src_k[i];
-          id[j] = src_i[i];
-          d[j] = (key[j] >> shift) & (kBins - 1);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kItems; ++j) {
-        const unsigned peers = warp_peers<9>(d[j]);   // d = kBins: no key
-        rank[j] = __popc(peers & lanemask_lt());
-        if (d[j] < kBins && rank[j] == 0)
-          s.slice_cnt[j * kWarps + warp][d[j]] = __popc(peers);
-      }
-      __syncthreads();
-      uint32_t* cnt = &s.slice_cnt[quarter * kPerQuarter][digit];
-      uint32_t sum = 0;
-#pragma unroll
-      for (int v = 0; v < kPerQuarter; ++v) sum += cnt[v * kBins];
-      s.quarter_tot[quarter][digit] = sum;
-      __syncthreads();
-      // the slices' offsets for this digit, in slice order, on top of its
-      // bucket's base; counts of 0 stay 0 (no key reads them)
-      uint32_t run = s.bucket[digit];
-      for (int q = 0; q < quarter; ++q) run += s.quarter_tot[q][digit];
-#pragma unroll
-      for (int v = 0; v < kPerQuarter; ++v) {
-        const uint32_t c = cnt[v * kBins];
-        if (c) {
-          cnt[v * kBins] = run;
-          run += c;
-        }
-      }
-      __syncthreads();
-      if (quarter == kQuarters - 1) s.bucket[digit] = run;
-      uint32_t dst[kItems];
-#pragma unroll
-      for (int j = 0; j < kItems; ++j)
-        if (d[j] < kBins) dst[j] = s.slice_cnt[j * kWarps + warp][d[j]] + rank[j];
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kItems; ++j) {
-        if (d[j] < kBins) {
-          if (rank[j] == 0) s.slice_cnt[j * kWarps + warp][d[j]] = 0;
-          dst_k[dst[j]] = key[j];
-          dst_i[dst[j]] = id[j];
-        }
-      }
-      __syncwarp();   // the resets land before another lane's next count
-    }
-    uint32_t* t = src_k; src_k = dst_k; dst_k = t;
-    t = src_i; src_i = dst_i; dst_i = t;
-    cur ^= 1;
-  }
-  __syncthreads();
-  return cur;
-}
-
-__device__ void zero_counts(Smem& s) {
-  uint32_t* cnt = &s.slice_cnt[0][0];
-  for (int t = threadIdx.x; t < kSlices * kBins; t += kThreads) cnt[t] = 0;
-  uint32_t* hist = &s.hist[0][0];
-  for (int t = threadIdx.x; t < 4 * kBins; t += kThreads) hist[t] = 0;
-}
-
-__global__ void __launch_bounds__(kThreads) row_topk_kernel(NannSelectArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Smem& s = *reinterpret_cast<Smem*>(smem);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t row = blockIdx.x;
-  const int n = (int)a.W, k = (int)a.K;
-  const bool is_float = a.is_float != 0;
-  const uint32_t flip = a.largest ? kFull : 0u;
-  const uint32_t* x = static_cast<const uint32_t*>(a.x) + row * n;
-
-  // radix select: the k-th key T, from the top digit down, and kk, the
-  // number of T's ties among the k
-  uint32_t prefix = 0, mask = 0, kk = (uint32_t)k;
-  for (int p = 3; p >= 0; --p) {
-    const int shift = 8 * p;
-    for (int t = tid; t < kBins; t += kThreads) s.hist[0][t] = 0;
-    __syncthreads();
-    for (int base = 0; base < n; base += kThreads) {
-      const int i = base + tid;
-      const uint32_t u = i < n ? radix_key(x[i], is_float) ^ flip : 0;
-      warp_hist_add(s.hist[0], (u >> shift) & (kBins - 1),
-                    i < n && (u & mask) == prefix);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      uint32_t v[kBins / 32], sum = 0;
-#pragma unroll
-      for (int j = 0; j < kBins / 32; ++j) {
-        v[j] = s.hist[0][lane * (kBins / 32) + j];
-        sum += v[j];
-      }
-      uint32_t incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t t = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += t;
-      }
-      uint32_t below = incl - sum;
-#pragma unroll
-      for (int j = 0; j < kBins / 32; ++j) {
-        if (below < kk && below + v[j] >= kk) {
-          s.scal[0] = lane * (kBins / 32) + j;
-          s.scal[1] = below;
-        }
-        below += v[j];
-      }
-    }
-    __syncthreads();
-    prefix |= s.scal[0] << shift;
-    mask |= (uint32_t)(kBins - 1) << shift;
-    kk -= s.scal[1];
-  }
-  const uint32_t T = prefix, n_less = (uint32_t)k - kk;
-
-  // compaction of the winners in index order, with the histograms of their
-  // keys for the sort
-  uint32_t* ka = a.scratch + (0 * a.B + row) * k;
-  uint32_t* ia = a.scratch + (1 * a.B + row) * k;
-  uint32_t* kb = a.scratch + (2 * a.B + row) * k;
-  uint32_t* ib = a.scratch + (3 * a.B + row) * k;
-  zero_counts(s);
-  if (tid == 0) s.scal[2] = s.scal[3] = 0;   // keys below T, T's ties so far
-  __syncthreads();
-  for (int base = 0; base < n; base += kThreads) {
-    const int i = base + tid;
-    const uint32_t u = i < n ? radix_key(x[i], is_float) ^ flip : 0;
-    const bool less = i < n && u < T, tie = i < n && u == T;
-    const unsigned bl = __ballot_sync(kFull, less);
-    const unsigned bt = __ballot_sync(kFull, tie);
-    if (lane == 0) {
-      s.warp_tot[0][warp] = __popc(bl);
-      s.warp_tot[1][warp] = __popc(bt);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const uint32_t cl = s.warp_tot[0][lane], ct = s.warp_tot[1][lane];
-      uint32_t il = cl, it = ct;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t tl = __shfl_up_sync(kFull, il, o);
-        const uint32_t tt = __shfl_up_sync(kFull, it, o);
-        if (lane >= o) {
-          il += tl;
-          it += tt;
-        }
-      }
-      const uint32_t run_l = s.scal[2], run_t = s.scal[3];
-      s.warp_tot[0][lane] = run_l + il - cl;
-      s.warp_tot[1][lane] = run_t + it - ct;
-      const uint32_t tot_l = __shfl_sync(kFull, il, 31);
-      const uint32_t tot_t = __shfl_sync(kFull, it, 31);
-      __syncwarp();
-      if (lane == 0) {
-        s.scal[2] = run_l + tot_l;
-        s.scal[3] = run_t + tot_t;
-      }
-    }
-    __syncthreads();
-    const uint32_t less_before = s.warp_tot[0][warp] + __popc(bl & lanemask_lt());
-    const uint32_t tie_before = s.warp_tot[1][warp] + __popc(bt & lanemask_lt());
-    const bool take = less || (tie && tie_before < kk);
-    if (take) {
-      const uint32_t pos = less_before + (tie_before < kk ? tie_before : kk);
-      ka[pos] = u;
-      ia[pos] = (uint32_t)i;
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      warp_hist_add(s.hist[p], (u >> (8 * p)) & (kBins - 1), take);
-    const bool done = s.scal[2] == n_less && s.scal[3] >= kk;
-    __syncthreads();
-    if (done) break;
-  }
-
-  const uint32_t* order = block_radix_sort(ka, ia, kb, ib, k, s) ? ib : ia;
-  uint32_t* out = static_cast<uint32_t*>(a.out) + row * k;
-  int32_t* perm = a.perm + row * k;
-  for (int i = tid; i < k; i += kThreads) {
-    const uint32_t j = order[i];
-    out[i] = x[j];
-    perm[i] = (int32_t)j;
-  }
 }
 
 // ---------------------------------------------------------------- row_sort
@@ -607,36 +344,30 @@ __device__ __forceinline__ void stage(const uint32_t (&key)[kItems],
   }
 }
 
-// Short rows: one block a row, every pass inside it. With m = ceil(n /
-// 512) <= 16 keys a thread, thread (warp w, lane l) holds the row's slots
-// w * 32 m + j * 32 + l, j < m, in registers; a pass stages them in digit
-// order and reads them back at the same slots. A slot's index is below n
-// exactly when it holds a key of the row. At most 64 registers a thread,
-// so that two blocks fit an SM.
-__global__ void __launch_bounds__(kSortThreads, 2)
-    row_sort_short_kernel(NannSelectArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  RankSmem<kShortItems>& s = *reinterpret_cast<RankSmem<kShortItems>*>(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row = blockIdx.x;
-  const int n = (int)a.W;
-  const int m = (n + kSortThreads - 1) / kSortThreads;
-  const bool is_float = a.is_float != 0;
-  const uint32_t* x = static_cast<const uint32_t*>(a.x) + row * n;
-  uint32_t key[kShortItems], id[kShortItems], d[kShortItems],
-      rank[kShortItems];
-#pragma unroll
-  for (int j = 0; j < kShortItems; ++j) {
-    const int i = warp * 32 * m + j * 32 + lane;
-    key[j] = j < m && i < n ? radix_key(x[i], is_float) : 0;
-    id[j] = i;
-  }
+// The slot of item j of this thread in a block that holds m keys a thread:
+// thread (warp w, lane l) holds slots w * 32 m + j * 32 + l, so the slots
+// run in (warp, item, lane) order.
+__device__ __forceinline__ int slot_of(int j, int m) {
+  return (threadIdx.x >> 5) * 32 * m + j * 32 + (threadIdx.x & 31);
+}
+
+// Stable LSD sort of the n (key, id) pairs a block holds in registers, m <=
+// kShortItems a thread at slot_of(j, m), the first n slots holding them: a
+// slot holds a key when its id is below id_end, and the slots past n carry
+// ids that are not. Afterwards slot i holds the i-th smallest key, equal
+// keys in slot order. Each pass stages the block in digit order and reads
+// it back at the same slots; a digit every key shares is skipped. Every
+// thread calls it.
+__device__ __forceinline__ void block_sort_short(
+    uint32_t (&key)[kShortItems], uint32_t (&id)[kShortItems], int n, int m,
+    uint32_t id_end, RankSmem<kShortItems>& s) {
+  const int tid = threadIdx.x;
+  uint32_t d[kShortItems], rank[kShortItems];
   for (int p = 0; p < 4; ++p) {
     const int shift = 8 * p;
 #pragma unroll
     for (int j = 0; j < kShortItems; ++j)
-      d[j] = id[j] < (uint32_t)n ? (key[j] >> shift) & (kBins - 1)
-                                 : kBins - 1;
+      d[j] = id[j] < id_end ? (key[j] >> shift) & (kBins - 1) : kBins - 1;
     uint32_t total = block_rank<kShortItems>(d, rank, s, m);
     if (tid == kBins - 1) total -= kSortThreads * m - n;   // the padding
     if (__syncthreads_or(tid < kBins && total == (uint32_t)n)) continue;
@@ -645,17 +376,40 @@ __global__ void __launch_bounds__(kSortThreads, 2)
 #pragma unroll
     for (int j = 0; j < kShortItems; ++j) {
       if (j >= m) break;
-      const int i = warp * 32 * m + j * 32 + lane;
+      const int i = slot_of(j, m);
       key[j] = s.key[i];
       id[j] = s.idx[i];
     }
     __syncthreads();
   }
+}
+
+// Short rows: one block a row, every pass inside it. With m = ceil(n /
+// 512) <= 16 keys a thread, the row's key i is held at slot i, its id i
+// (the slots past the row: ids from n). At most 64 registers a thread, so
+// that two blocks fit an SM.
+__global__ void __launch_bounds__(kSortThreads, 2)
+    row_sort_short_kernel(NannSelectArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  RankSmem<kShortItems>& s = *reinterpret_cast<RankSmem<kShortItems>*>(smem);
+  const int64_t row = blockIdx.x;
+  const int n = (int)a.W;
+  const int m = (n + kSortThreads - 1) / kSortThreads;
+  const bool is_float = a.is_float != 0;
+  const uint32_t* x = static_cast<const uint32_t*>(a.x) + row * n;
+  uint32_t key[kShortItems], id[kShortItems];
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    const int i = slot_of(j, m);
+    key[j] = j < m && i < n ? radix_key(x[i], is_float) : 0;
+    id[j] = i;
+  }
+  block_sort_short(key, id, n, m, (uint32_t)n, s);
   uint32_t* out = static_cast<uint32_t*>(a.out) + row * n;
   int32_t* perm = a.perm ? a.perm + row * n : nullptr;
 #pragma unroll
   for (int j = 0; j < kShortItems; ++j) {
-    const int i = warp * 32 * m + j * 32 + lane;
+    const int i = slot_of(j, m);
     if (j < m && i < n) {
       out[i] = value_of(key[j], id[j], x, is_float);
       if (perm) perm[i] = (int32_t)id[j];
@@ -664,8 +418,8 @@ __global__ void __launch_bounds__(kSortThreads, 2)
 }
 
 // Tiled rows, 1: each tile's histograms of all four digits, one shared
-// atomic a key and digit (grouping a warp's equal digits by ballots first,
-// as the top-k does, took 3-4 times as long here).
+// atomic a key and digit (grouping a warp's equal digits by ballots first
+// took 3-4 times as long here).
 __global__ void __launch_bounds__(kSortThreads)
     row_sort_prepare_kernel(SortPlan a) {
   __shared__ uint32_t hist[4 * kBins];
@@ -830,6 +584,617 @@ __global__ void __launch_bounds__(kSortThreads)
   }
 }
 
+// ---------------------------------------------------------------- row_topk
+
+// Candidates a finish block takes: the keys of one short row.
+constexpr int kCandidates = kShortRow;
+
+// Where a radix select stands: a key u lies below the k-th when (u & mask)
+// < prefix and ties with it when (u & mask) == prefix; `bucket` keys tie and
+// the first `need` of them (in index order) are taken.
+struct Select {
+  uint32_t prefix, mask, need, bucket;
+};
+
+// A tiled row's state between kernels ([B, kStateWords] in the scratch).
+constexpr int kStateWords = 8;
+enum StateWord { kPrefix, kMask, kNeed, kBucket, kDone, kExact };
+
+// The top-k's room in a short or finish block: the short sort's, one
+// digit's histogram, the warps' AND and OR of their keys, the warps' counts
+// of keys below and tying in the compaction, a scan's warp sums and what
+// one thread hands the block.
+struct TopkSmem {
+  RankSmem<kShortItems> rank;
+  uint32_t hist[kBins];
+  uint32_t warp_and[kSortWarps];
+  uint32_t warp_or[kSortWarps];
+  uint32_t warp_less[kSortWarps];
+  uint32_t warp_tie[kSortWarps];
+  uint32_t warp_sum[kBins / 32];
+  uint32_t pick[3];
+};
+
+// hist[bin] += 1 for each lane with pred. Every lane of the warp calls it.
+// A warp whose counted lanes share one bin (a run of -inf, of equal pads, a
+// digit every key shares) adds once; otherwise each lane adds its own, the
+// sort's cheaper way on spread digits.
+__device__ __forceinline__ void hist_add(uint32_t* hist, uint32_t bin,
+                                         bool pred) {
+  const unsigned active = __ballot_sync(kFull, pred);
+  if (active == 0) return;
+  const int first = __ffs(active) - 1;
+  const uint32_t b0 = __shfl_sync(kFull, bin, first);
+  if (__all_sync(kFull, !pred || bin == b0)) {
+    if ((int)(threadIdx.x & 31) == first) atomicAdd(hist + b0, __popc(active));
+  } else if (pred) {
+    atomicAdd(hist + bin, 1u);
+  }
+}
+
+// The bucket of the need-th key of a histogram: threads 0..255 hold their
+// digit's count h; the thread whose bucket holds it writes (digit, keys
+// below, keys in it) to pick. Every thread calls it; it ends on a barrier.
+__device__ __forceinline__ void pick_bucket(uint32_t h, uint32_t need,
+                                            uint32_t* warp_sum,
+                                            uint32_t* pick) {
+  const uint32_t below = scan_bins(h, warp_sum);
+  if (threadIdx.x < kBins && below < need && below + h >= need) {
+    pick[0] = threadIdx.x;
+    pick[1] = below;
+    pick[2] = h;
+  }
+  __syncthreads();
+}
+
+// Radix select of the k < n smallest of the n keys a block holds (m a
+// thread at slot_of(j, m); slots at or past n hold none), ties to the lower
+// slot: the digits of the k-th key from the top. A digit every key shares is
+// taken from their AND; each other costs a histogram of the keys that share
+// the digits found so far. The select stops when the bucket's keys are all
+// taken. Every thread calls it and gets the same result.
+__device__ Select block_select(const uint32_t (&u)[kShortItems], int n, int m,
+                               int k, TopkSmem& s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Select sel{0u, 0u, (uint32_t)k, (uint32_t)n};
+  uint32_t all_and = kFull, all_or = 0;
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    if (j >= m) break;
+    if (slot_of(j, m) < n) {
+      all_and &= u[j];
+      all_or |= u[j];
+    }
+  }
+  all_and = __reduce_and_sync(kFull, all_and);
+  all_or = __reduce_or_sync(kFull, all_or);
+  if (lane == 0) {
+    s.warp_and[warp] = all_and;
+    s.warp_or[warp] = all_or;
+  }
+  __syncthreads();
+  all_and = kFull;
+  all_or = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    all_and &= s.warp_and[w];
+    all_or |= s.warp_or[w];
+  }
+  const uint32_t varies = all_and ^ all_or;
+  for (int p = 3; p >= 0; --p) {
+    const int shift = 8 * p;
+    const uint32_t dmask = (uint32_t)(kBins - 1) << shift;
+    sel.mask |= dmask;
+    if ((varies & dmask) == 0) {          // every key has this digit
+      sel.prefix |= all_and & dmask;
+      continue;
+    }
+    if (tid < kBins) s.hist[tid] = 0;
+    __syncthreads();
+    const uint32_t before = sel.mask ^ dmask;
+#pragma unroll
+    for (int j = 0; j < kShortItems; ++j) {
+      if (j >= m) break;
+      hist_add(s.hist, (u[j] >> shift) & (kBins - 1),
+               slot_of(j, m) < n && (u[j] & before) == sel.prefix);
+    }
+    __syncthreads();
+    pick_bucket(tid < kBins ? s.hist[tid] : 0, sel.need, s.warp_sum, s.pick);
+    sel.prefix |= s.pick[0] << shift;
+    sel.need -= s.pick[1];
+    sel.bucket = s.pick[2];
+    if (sel.need == sel.bucket) break;    // the bucket is taken whole
+  }
+  return sel;
+}
+
+// The keys sel takes, from the n a block holds, into the stage at base in
+// index order: those below the k-th at base + their rank among them, its
+// first sel.need ties at base + (k - sel.need) + their rank. The caller puts
+// a barrier after it.
+__device__ void block_compact(const uint32_t (&u)[kShortItems],
+                              const uint32_t (&id)[kShortItems], int n,
+                              int m, const Select& sel, int k, int base,
+                              TopkSmem& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t n_less = 0, n_tie = 0;
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    if (j >= m) break;
+    const bool valid = slot_of(j, m) < n;
+    const uint32_t mu = u[j] & sel.mask;
+    n_less += __popc(__ballot_sync(kFull, valid && mu < sel.prefix));
+    n_tie += __popc(__ballot_sync(kFull, valid && mu == sel.prefix));
+  }
+  if (lane == 0) {
+    s.warp_less[warp] = n_less;
+    s.warp_tie[warp] = n_tie;
+  }
+  __syncthreads();
+  uint32_t less_at = base, tie_at = 0;
+  for (int w = 0; w < warp; ++w) {
+    less_at += s.warp_less[w];
+    tie_at += s.warp_tie[w];
+  }
+  const uint32_t ties_from = base + (uint32_t)k - sel.need;
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    if (j >= m) break;
+    const bool valid = slot_of(j, m) < n;
+    const uint32_t mu = u[j] & sel.mask;
+    const bool less = valid && mu < sel.prefix;
+    const bool tie = valid && mu == sel.prefix;
+    const unsigned bl = __ballot_sync(kFull, less);
+    const unsigned bt = __ballot_sync(kFull, tie);
+    const uint32_t r_tie = tie_at + __popc(bt & lanemask_lt());
+    const uint32_t pos = less ? less_at + __popc(bl & lanemask_lt())
+                              : ties_from + r_tie;
+    if (less || (tie && r_tie < sel.need)) {
+      s.rank.key[pos] = u[j];
+      s.rank.idx[pos] = id[j];
+    }
+    less_at += __popc(bl);
+    tie_at += __popc(bt);
+  }
+}
+
+// The k winners staged at [0, k) into registers, m = ceil(k / 512) a
+// thread at slot_of(j, m); the slots past k get the id kFull, past any
+// row's index. The caller puts a barrier before it.
+__device__ __forceinline__ void load_stage(const TopkSmem& s, int k, int m,
+                                           uint32_t (&key)[kShortItems],
+                                           uint32_t (&id)[kShortItems]) {
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    const int i = slot_of(j, m);
+    if (j < m) {
+      key[j] = i < k ? s.rank.key[i] : 0;
+      id[j] = i < k ? s.rank.idx[i] : kFull;
+    }
+  }
+}
+
+// Sorts the k winners of a row of W keys that a block holds (m a thread at
+// slot_of(j, m); the slots past k with ids of W or more) and writes them:
+// values (their bits, from the row x at their index where float) and
+// indices. flip undoes the largest's complement. Every thread calls it.
+__device__ __forceinline__ void sort_and_write(
+    uint32_t (&key)[kShortItems], uint32_t (&id)[kShortItems], int k, int m,
+    int W, TopkSmem& s, const uint32_t* x, bool is_float, uint32_t flip,
+    uint32_t* out, int32_t* perm) {
+  block_sort_short(key, id, k, m, (uint32_t)W, s.rank);
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    const int i = slot_of(j, m);
+    if (j < m && i < k) {
+      out[i] = value_of(key[j] ^ flip, id[j], x, is_float);
+      perm[i] = (int32_t)id[j];
+    }
+  }
+}
+
+// Short rows: one block a row holds the row (key i at slot i, its id i),
+// selects the k winners, compacts them into the stage and sorts them
+// there. k == W is the sort alone.
+__global__ void __launch_bounds__(kSortThreads, 2)
+    row_topk_short_kernel(NannSelectArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TopkSmem& s = *reinterpret_cast<TopkSmem*>(smem);
+  const int64_t row = blockIdx.x;
+  const int n = (int)a.W, k = (int)a.K;
+  int m = (n + kSortThreads - 1) / kSortThreads;
+  const bool is_float = a.is_float != 0;
+  const uint32_t flip = a.largest ? kFull : 0u;
+  const uint32_t* x = static_cast<const uint32_t*>(a.x) + row * n;
+  uint32_t u[kShortItems], id[kShortItems];
+#pragma unroll
+  for (int j = 0; j < kShortItems; ++j) {
+    const int i = slot_of(j, m);
+    u[j] = j < m && i < n ? radix_key(x[i], is_float) ^ flip : 0;
+    id[j] = i;
+  }
+  if (k < n) {
+    const Select sel = block_select(u, n, m, k, s);
+    block_compact(u, id, n, m, sel, k, 0, s);
+    __syncthreads();
+    m = (k + kSortThreads - 1) / kSortThreads;
+    load_stage(s, k, m, u, id);
+  }
+  sort_and_write(u, id, k, m, n, s, x, is_float, flip,
+                 static_cast<uint32_t*>(a.out) + row * k, a.perm + row * k);
+}
+
+// Where the tiled top-k's pieces lie in the scratch (uint32 words): one
+// digit's tile counts [B, tiles, kBins], each tile's keys below the bucket
+// and in it [B, tiles] twice, the AND and the OR of each tile's keys that
+// share the prefix [B, tiles, 2], the rows' state [B, kStateWords], the certain
+// winners' keys and indices [B, K] twice, then for K <= kShortRow the
+// candidates' [B, kCandidates] twice, else the sorted winners' keys and
+// permutation [B, K] twice and the tiled sort's scratch of [B, K]. Keys in
+// the winners and candidates are stored as int32 bits whose order is the
+// key's (u ^ kSignBit), as the row sort takes them.
+struct TopkPlan {
+  const uint32_t* x;
+  uint32_t* out;
+  int32_t* perm;
+  uint32_t* tile_hist;
+  uint32_t* tile_less;
+  uint32_t* tile_tie;
+  uint32_t* tile_andor;
+  uint32_t* state;
+  uint32_t* win_key;
+  uint32_t* win_id;
+  uint32_t* cand_key;     // K <= kShortRow
+  uint32_t* cand_id;
+  uint32_t* sorted;       // K > kShortRow
+  int32_t* sorted_perm;
+  uint32_t* sort_scratch;
+  int64_t W, K;
+  int32_t tiles;
+  int32_t is_float;
+  uint32_t flip;
+};
+
+int64_t topk_scratch_words(int64_t B, int64_t W, int64_t K) {
+  if (W <= kShortRow) return 0;
+  const int64_t tiles = tiles_of(W);
+  const int64_t words = B * tiles * kBins + 4 * B * tiles + B * kStateWords
+                        + 2 * B * K;
+  return words + (K <= kShortRow ? 2 * B * kCandidates
+                                 : 2 * B * K + tiled_scratch_words(B, K));
+}
+
+TopkPlan topk_plan(const NannSelectArgs& a) {
+  TopkPlan p;
+  p.x = static_cast<const uint32_t*>(a.x);
+  p.out = static_cast<uint32_t*>(a.out);
+  p.perm = a.perm;
+  p.W = a.W;
+  p.K = a.K;
+  p.tiles = (int32_t)tiles_of(a.W);
+  p.is_float = a.is_float;
+  p.flip = a.largest ? kFull : 0u;
+  p.tile_hist = a.scratch;
+  p.tile_less = p.tile_hist + a.B * p.tiles * kBins;
+  p.tile_tie = p.tile_less + a.B * p.tiles;
+  p.tile_andor = p.tile_tie + a.B * p.tiles;
+  p.state = p.tile_andor + 2 * a.B * p.tiles;
+  p.win_key = p.state + a.B * kStateWords;
+  p.win_id = p.win_key + a.B * a.K;
+  uint32_t* rest = p.win_id + a.B * a.K;
+  p.cand_key = p.cand_id = p.sorted = p.sort_scratch = nullptr;
+  p.sorted_perm = nullptr;
+  if (a.K <= kShortRow) {
+    p.cand_key = rest;
+    p.cand_id = rest + a.B * kCandidates;
+  } else {
+    p.sorted = rest;
+    p.sorted_perm = reinterpret_cast<int32_t*>(rest + a.B * a.K);
+    p.sort_scratch = rest + 2 * a.B * a.K;
+  }
+  return p;
+}
+
+// Tiled rows, 1 (pass p, digit p from the top): the tile's counts of digit
+// p among the keys that share the row's prefix, and their AND and OR. A
+// done row returns, and so does one whose keys all share digit p; k == W
+// selects nothing.
+__global__ void __launch_bounds__(kSortThreads)
+    row_topk_hist_kernel(TopkPlan a, int p) {
+  __shared__ uint32_t hist[kBins];
+  __shared__ uint32_t warp_and[kSortWarps], warp_or[kSortWarps];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x, tile = blockIdx.y;
+  const int shift = 8 * p;
+  uint32_t prefix = 0, mask = 0;
+  if (p == 3) {
+    if (a.K == a.W) return;
+  } else {
+    const uint32_t* st = a.state + row * kStateWords;
+    prefix = st[kPrefix];
+    mask = st[kMask];
+    if (st[kDone] || ((mask >> shift) & (kBins - 1))) return;
+  }
+  if (tid < kBins) hist[tid] = 0;
+  __syncthreads();
+  const bool is_float = a.is_float != 0;
+  const uint32_t* x = a.x + row * a.W;
+  uint32_t all_and = kFull, all_or = 0;
+#pragma unroll
+  for (int r = 0; r < kTileItems; ++r) {
+    const int64_t i = tile * kSortTile + r * kSortThreads + tid;
+    const bool valid = i < a.W;
+    const uint32_t u = valid ? radix_key(x[i], is_float) ^ a.flip : 0;
+    const bool match = valid && (u & mask) == prefix;
+    hist_add(hist, (u >> shift) & (kBins - 1), match);
+    if (match) {
+      all_and &= u;
+      all_or |= u;
+    }
+  }
+  all_and = __reduce_and_sync(kFull, all_and);
+  all_or = __reduce_or_sync(kFull, all_or);
+  if ((tid & 31) == 0) {
+    warp_and[tid >> 5] = all_and;
+    warp_or[tid >> 5] = all_or;
+  }
+  __syncthreads();
+  const int64_t at = row * a.tiles + tile;
+  if (tid < kBins) a.tile_hist[at * kBins + tid] = hist[tid];
+  if (tid == 0) {
+    for (int w = 0; w < kSortWarps; ++w) {
+      all_and &= warp_and[w];
+      all_or |= warp_or[w];
+    }
+    a.tile_andor[at * 2] = all_and;
+    a.tile_andor[at * 2 + 1] = all_or;
+  }
+}
+
+// Tiled rows, 2 (pass p, one block of 256 threads a row): the row's counts
+// of digit p (the tiles' summed), the bucket of the k-th key, each tile's
+// keys below the bucket (added to the passes before) and in it, and the
+// row's new state. Every lower digit that the keys sharing the prefix all
+// share (their AND and OR agree there) is taken at once, and its pass
+// returns. Pass 3 starts the state; k == W takes every key.
+__global__ void __launch_bounds__(kBins) row_topk_plan_kernel(TopkPlan a,
+                                                              int p) {
+  __shared__ uint32_t warp_sum[kBins / 32];
+  __shared__ uint32_t pick[3];
+  __shared__ uint32_t warp_and[kBins / 32], warp_or[kBins / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row = blockIdx.x;
+  const int tiles = a.tiles;
+  uint32_t* st = a.state + row * kStateWords;
+  uint32_t* less = a.tile_less + row * tiles;
+  uint32_t* tie = a.tile_tie + row * tiles;
+  Select sel{0u, 0u, (uint32_t)a.K, (uint32_t)a.W};
+  if (p == 3 && a.K == a.W) {
+    for (int t = tid; t < tiles; t += kBins) {
+      const int64_t left = a.W - (int64_t)t * kSortTile;
+      less[t] = 0;
+      tie[t] = (uint32_t)(left < kSortTile ? left : kSortTile);
+    }
+    if (tid == 0) {
+      st[kPrefix] = st[kMask] = 0;
+      st[kNeed] = st[kBucket] = (uint32_t)a.W;
+      st[kDone] = st[kExact] = 1;
+    }
+    return;
+  }
+  if (p < 3) {
+    if (st[kDone] || ((st[kMask] >> (8 * p)) & (kBins - 1))) return;
+    sel = {st[kPrefix], st[kMask], st[kNeed], st[kBucket]};
+  }
+  // the tiles' AND and OR, loaded beside their counts so that the loads
+  // overlap
+  const uint32_t* ao = a.tile_andor + row * tiles * 2;
+  uint32_t all_and = kFull, all_or = 0;
+  for (int t = tid; t < tiles; t += kBins) {
+    all_and &= ao[2 * t];
+    all_or |= ao[2 * t + 1];
+  }
+  const uint32_t* h = a.tile_hist + row * tiles * kBins;
+  uint32_t total = 0;
+  for (int t = 0; t < tiles; ++t) total += h[t * kBins + tid];
+  all_and = __reduce_and_sync(kFull, all_and);
+  all_or = __reduce_or_sync(kFull, all_or);
+  if (lane == 0) {
+    warp_and[warp] = all_and;
+    warp_or[warp] = all_or;
+  }
+  pick_bucket(total, sel.need, warp_sum, pick);
+  const uint32_t b = pick[0];
+  for (int t = warp; t < tiles; t += kBins / 32) {
+    uint32_t c = 0;
+    for (int d = lane; d < (int)b; d += 32) c += h[t * kBins + d];
+    c = __reduce_add_sync(kFull, c);
+    if (lane == 0) {
+      less[t] = (p == 3 ? 0 : less[t]) + c;
+      tie[t] = h[t * kBins + b];
+    }
+  }
+  if (tid == 0) {
+    sel.prefix |= b << (8 * p);
+    sel.mask |= (uint32_t)(kBins - 1) << (8 * p);
+    sel.need -= pick[1];
+    sel.bucket = pick[2];
+    for (int w = 0; w < kBins / 32; ++w) {
+      all_and &= warp_and[w];
+      all_or |= warp_or[w];
+    }
+    const uint32_t varies = all_and ^ all_or;
+    for (int q = p - 1; q >= 0; --q) {
+      const uint32_t dmask = (uint32_t)(kBins - 1) << (8 * q);
+      if ((varies & dmask) == 0) {
+        sel.prefix |= all_and & dmask;
+        sel.mask |= dmask;
+      }
+    }
+    const bool exact = sel.need == sel.bucket || sel.mask == kFull;
+    st[kPrefix] = sel.prefix;
+    st[kMask] = sel.mask;
+    st[kNeed] = sel.need;
+    st[kBucket] = sel.bucket;
+    st[kExact] = exact;
+    st[kDone] = exact || (a.K <= kShortRow && sel.bucket <= kCandidates);
+  }
+}
+
+// Tiled rows, 3: the tile's keys below the bucket to the winners, at the
+// row's earlier tiles' count of them plus their rank in the tile; the keys
+// in the bucket likewise to the candidates, or, in an exact row, the first
+// `need` of them to the winners after those below. Thread t holds the
+// tile's keys r * 512 + t, r < 8, so index order is (r, warp, lane).
+__global__ void __launch_bounds__(kSortThreads)
+    row_topk_filter_kernel(TopkPlan a) {
+  __shared__ uint32_t cnt[2][kTileItems * kSortWarps];  // below, in bucket
+  __shared__ uint32_t base[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row = blockIdx.x, tile = blockIdx.y;
+  const int64_t lo = tile * kSortTile;
+  const uint32_t* st = a.state + row * kStateWords;
+  const uint32_t prefix = st[kPrefix], mask = st[kMask], need = st[kNeed];
+  const bool exact = st[kExact] != 0;
+  if (warp == 0) {
+    const uint32_t* less = a.tile_less + row * a.tiles;
+    const uint32_t* tie = a.tile_tie + row * a.tiles;
+    uint32_t bl = 0, bt = 0;
+    for (int t = lane; t < tile; t += 32) {
+      bl += less[t];
+      bt += tie[t];
+    }
+    bl = __reduce_add_sync(kFull, bl);
+    bt = __reduce_add_sync(kFull, bt);
+    if (lane == 0) {
+      base[0] = bl;
+      base[1] = bt;
+    }
+  }
+  const bool is_float = a.is_float != 0;
+  const uint32_t* x = a.x + row * a.W;
+  uint32_t u[kTileItems];
+#pragma unroll
+  for (int r = 0; r < kTileItems; ++r) {
+    const int64_t i = lo + r * kSortThreads + tid;
+    const bool valid = i < a.W;
+    u[r] = valid ? radix_key(x[i], is_float) ^ a.flip : 0;
+    const uint32_t mu = u[r] & mask;
+    const unsigned bl = __ballot_sync(kFull, valid && mu < prefix);
+    const unsigned bt = __ballot_sync(kFull, valid && mu == prefix);
+    if (lane == 0) {
+      cnt[0][r * kSortWarps + warp] = __popc(bl);
+      cnt[1][r * kSortWarps + warp] = __popc(bt);
+    }
+  }
+  __syncthreads();
+  if (warp < 2) {            // warp 0 scans the counts below, warp 1 ties
+    uint32_t* c = cnt[warp] + lane * 4;
+    const uint32_t v0 = c[0], v1 = c[1], v2 = c[2], v3 = c[3];
+    const uint32_t sum = v0 + v1 + v2 + v3;
+    uint32_t incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const uint32_t run = base[warp] + incl - sum;
+    c[0] = run;
+    c[1] = run + v0;
+    c[2] = run + v0 + v1;
+    c[3] = run + v0 + v1 + v2;
+  }
+  __syncthreads();
+  const uint32_t n_less = (uint32_t)a.K - need;
+  uint32_t* win_key = a.win_key + row * a.K;
+  uint32_t* win_id = a.win_id + row * a.K;
+#pragma unroll
+  for (int r = 0; r < kTileItems; ++r) {
+    const int64_t i = lo + r * kSortThreads + tid;
+    const bool valid = i < a.W;
+    const uint32_t mu = u[r] & mask;
+    const bool is_less = valid && mu < prefix;
+    const bool is_tie = valid && mu == prefix;
+    const unsigned bl = __ballot_sync(kFull, is_less);
+    const unsigned bt = __ballot_sync(kFull, is_tie);
+    if (is_less) {
+      const uint32_t pos = cnt[0][r * kSortWarps + warp]
+                           + __popc(bl & lanemask_lt());
+      win_key[pos] = u[r] ^ kSignBit;
+      win_id[pos] = (uint32_t)i;
+    } else if (is_tie) {
+      const uint32_t rt = cnt[1][r * kSortWarps + warp]
+                          + __popc(bt & lanemask_lt());
+      if (!exact) {
+        a.cand_key[row * kCandidates + rt] = u[r] ^ kSignBit;
+        a.cand_id[row * kCandidates + rt] = (uint32_t)i;
+      } else if (rt < need) {
+        win_key[n_less + rt] = u[r] ^ kSignBit;
+        win_id[n_less + rt] = (uint32_t)i;
+      }
+    }
+  }
+}
+
+// Tiled rows, 4 (K <= kShortRow, one block a row): the candidates' own
+// select of the `need` the row still takes, compacted after the certain
+// winners, then the short sort of the k winners and the output.
+__global__ void __launch_bounds__(kSortThreads, 2)
+    row_topk_finish_kernel(TopkPlan a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TopkSmem& s = *reinterpret_cast<TopkSmem*>(smem);
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const int k = (int)a.K;
+  const uint32_t* st = a.state + row * kStateWords;
+  const uint32_t need = st[kNeed];
+  const bool exact = st[kExact] != 0;
+  const int n_win = exact ? k : k - (int)need;
+  if (!exact) {
+    const int n = (int)st[kBucket];
+    const int m = (n + kSortThreads - 1) / kSortThreads;
+    const uint32_t* ck = a.cand_key + row * kCandidates;
+    const uint32_t* ci = a.cand_id + row * kCandidates;
+    uint32_t u[kShortItems], id[kShortItems];
+#pragma unroll
+    for (int j = 0; j < kShortItems; ++j) {
+      const int i = slot_of(j, m);
+      u[j] = id[j] = 0;
+      if (j < m && i < n) {
+        u[j] = ck[i] ^ kSignBit;
+        id[j] = ci[i];
+      }
+    }
+    const Select sel = block_select(u, n, m, (int)need, s);
+    block_compact(u, id, n, m, sel, (int)need, n_win, s);
+  }
+  const uint32_t* wk = a.win_key + row * k;
+  const uint32_t* wi = a.win_id + row * k;
+  for (int i = tid; i < n_win; i += kSortThreads) {
+    s.rank.key[i] = wk[i] ^ kSignBit;
+    s.rank.idx[i] = wi[i];
+  }
+  __syncthreads();
+  const int m = (k + kSortThreads - 1) / kSortThreads;
+  uint32_t key[kShortItems], id[kShortItems];
+  load_stage(s, k, m, key, id);
+  sort_and_write(key, id, k, m, (int)a.W, s, a.x + row * a.W,
+                 a.is_float != 0, a.flip, a.out + row * k, a.perm + row * k);
+}
+
+// Tiled rows, 4 (K > kShortRow, after the row sort of the winners' keys):
+// each output slot's index through the sort's permutation, its value from
+// its key (int32) or from x (float32).
+__global__ void __launch_bounds__(kSortThreads)
+    row_topk_gather_kernel(TopkPlan a, int64_t total) {
+  const int64_t g = (int64_t)blockIdx.x * kSortThreads + threadIdx.x;
+  if (g >= total) return;
+  const int64_t row = g / a.K;
+  const uint32_t id = a.win_id[row * a.K + a.sorted_perm[g]];
+  a.out[g] = value_of((a.sorted[g] ^ kSignBit) ^ a.flip, id, a.x + row * a.W,
+                      a.is_float != 0);
+  a.perm[g] = (int32_t)id;
+}
+
 bool row_fits(int64_t w) { return w <= INT32_MAX; }
 
 }  // namespace
@@ -844,9 +1209,10 @@ int nann_select_init(void) {
     const void* kernel;
     size_t bytes;
   } kernels[] = {
-      {(const void*)row_topk_kernel, sizeof(Smem)},
       {(const void*)row_sort_short_kernel, sizeof(RankSmem<kShortItems>)},
-      {(const void*)row_sort_downsweep_kernel, sizeof(RankSmem<kTileItems>)}};
+      {(const void*)row_sort_downsweep_kernel, sizeof(RankSmem<kTileItems>)},
+      {(const void*)row_topk_short_kernel, sizeof(TopkSmem)},
+      {(const void*)row_topk_finish_kernel, sizeof(TopkSmem)}};
   for (const auto& k : kernels) {
     const cudaError_t err = cudaFuncSetAttribute(
         k.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.bytes);
@@ -895,17 +1261,65 @@ int nann_row_sort(const NannSelectArgs* a, void* stream) {
   return 0;
 }
 
+// row_topk: rows of up to kShortRow keys take one block a row and no
+// scratch; wider rows need scratch_words of topk_scratch_words(B, W, K) and
+// launch a histogram and a plan kernel for each digit, the filter, and the
+// finish (K <= kShortRow) or the tiled row sort of the winners and the
+// gather.
 int nann_row_topk(const NannSelectArgs* a, void* stream) {
   if (a->B == 0 || a->K == 0) return 0;
-  if (!row_fits(a->W) || a->K > a->W) return (int)cudaErrorInvalidValue;
-  row_topk_kernel<<<(unsigned)a->B, kThreads, sizeof(Smem),
-                    static_cast<cudaStream_t>(stream)>>>(*a);
+  if (!row_fits(a->W) || a->K > a->W || a->B > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->W <= kShortRow) {
+    row_topk_short_kernel<<<(unsigned)a->B, kSortThreads, sizeof(TopkSmem),
+                            st>>>(*a);
+    return (int)cudaGetLastError();
+  }
+  if (a->scratch == nullptr ||
+      a->scratch_words < topk_scratch_words(a->B, a->W, a->K) ||
+      tiles_of(a->W) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const TopkPlan plan = topk_plan(*a);
+  const dim3 grid((unsigned)a->B, (unsigned)plan.tiles);
+  cudaError_t err;
+  for (int p = 3; p >= 0; --p) {
+    row_topk_hist_kernel<<<grid, kSortThreads, 0, st>>>(plan, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    row_topk_plan_kernel<<<(unsigned)a->B, kBins, 0, st>>>(plan, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  row_topk_filter_kernel<<<grid, kSortThreads, 0, st>>>(plan);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (a->K <= kShortRow) {
+    row_topk_finish_kernel<<<(unsigned)a->B, kSortThreads, sizeof(TopkSmem),
+                             st>>>(plan);
+    return (int)cudaGetLastError();
+  }
+  NannSelectArgs sort{};
+  sort.x = plan.win_key;
+  sort.out = plan.sorted;
+  sort.perm = plan.sorted_perm;
+  sort.scratch = plan.sort_scratch;
+  sort.B = a->B;
+  sort.W = a->K;
+  sort.scratch_words = tiled_scratch_words(a->B, a->K);
+  if ((err = (cudaError_t)nann_row_sort(&sort, stream)) != cudaSuccess)
+    return (int)err;
+  const int64_t total = a->B * a->K;
+  row_topk_gather_kernel<<<(unsigned)((total + kSortThreads - 1)
+                                      / kSortThreads),
+                           kSortThreads, 0, st>>>(plan, total);
   return (int)cudaGetLastError();
 }
 
-// The tiled path's scratch in uint32 words, as the wrapper sizes it.
+// The tiled paths' scratch in uint32 words, as the wrapper sizes it.
 int64_t nann_row_sort_scratch_words(int64_t B, int64_t W) {
   return tiled_scratch_words(B, W);
+}
+
+int64_t nann_row_topk_scratch_words(int64_t B, int64_t W, int64_t K) {
+  return topk_scratch_words(B, W, K);
 }
 
 // Blocks of a row_sort path (0 short, 1 the tiled downsweep) that fit an

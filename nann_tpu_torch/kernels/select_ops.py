@@ -18,8 +18,10 @@ On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain version beside it, which is also what the kernel is held
 against on the card. Shapes, types and devices are checked on both. Each
 wrapper's `.launches` counts its calls that launched: one device kernel a
-call for `row_topk` and the short rows of `row_sort`, nine (a tiled row
-sort's prepare, plan, upsweeps and downsweeps) for rows above SHORT_ROW.
+call on rows of up to SHORT_ROW keys; above it, nine for `row_sort` (a
+tiled sort's prepare, plan, upsweeps and downsweeps) and ten for `row_topk`
+(a histogram and a plan kernel a digit, the filter, the finish; nineteen
+when k > SHORT_ROW, whose winners go through the tiled sort and a gather).
 
 `selects(plain)` gives the sort, the top-k and the element gather as one
 object, the kernels (the default) or the plain versions, so that a caller
@@ -50,13 +52,14 @@ class SelectArgs(ctypes.Structure):
                 ("is_float", ctypes.c_int32), ("largest", ctypes.c_int32)]
 
 
-# The row sort's paths, mirroring csrc/select_ops.cu: rows of up to
-# SHORT_ROW keys sort in one block ("short", no scratch); wider rows in
+# The row sort's and row top-k's paths, mirroring csrc/select_ops.cu: rows
+# of up to SHORT_ROW keys in one block ("short", no scratch); wider rows in
 # tiles of SORT_TILE keys, one block a tile ("tiled").
 SORT_PATHS = ("short", "tiled")
 SHORT_ROW = 8192          # kShortRow
 SORT_TILE = 4096          # kSortTile
 _BINS = 256               # kBins
+_STATE_WORDS = 8          # kStateWords
 
 
 def _sort_plan(B: int, W: int):
@@ -70,6 +73,26 @@ def _sort_plan(B: int, W: int):
     tiles = -(-W // SORT_TILE)
     words = (4 * B * tiles * SORT_TILE + B * tiles * 5 * _BINS
              + B * 4 * _BINS + B)
+    return "tiled", tiles, words
+
+
+def _topk_plan(B: int, W: int, k: int):
+    """(path, tiles, scratch_words) of a row top-k of [B, W], as the kernel
+    library picks it from the width: the path, the tiles a row is cut into
+    and the int32 words of scratch it needs (topk_scratch_words in the .cu:
+    one digit's tile counts, each tile's keys below the bucket and in it,
+    the AND and OR of each tile's keys that share the prefix, the rows'
+    state, the certain winners' keys and indices; then the
+    candidates' keys and indices for k <= SHORT_ROW, else the sorted
+    winners' keys and permutation and the tiled sort's scratch of [B, k])."""
+    if W <= SHORT_ROW:
+        return "short", 1, 0
+    tiles = -(-W // SORT_TILE)
+    words = B * tiles * _BINS + 4 * B * tiles + B * _STATE_WORDS + 2 * B * k
+    if k <= SHORT_ROW:         # kCandidates: a finish block takes one short row
+        words += 2 * B * SHORT_ROW
+    else:
+        words += 2 * B * k + _sort_plan(B, k)[2]
     return "tiled", tiles, words
 
 
@@ -137,6 +160,8 @@ def _library() -> ctypes.CDLL:
     lib.nann_row_sort_scratch_words.argtypes = [ctypes.c_int64,
                                                 ctypes.c_int64]
     lib.nann_row_sort_scratch_words.restype = ctypes.c_int64
+    lib.nann_row_topk_scratch_words.argtypes = [ctypes.c_int64] * 3
+    lib.nann_row_topk_scratch_words.restype = ctypes.c_int64
     lib.nann_row_sort_blocks_per_sm.argtypes = [ctypes.c_int]
     lib.nann_row_sort_blocks_per_sm.restype = ctypes.c_int
     lib.nann_select_error_string.argtypes = [ctypes.c_int]
@@ -164,11 +189,6 @@ def _launch(fn_name: str, args: SelectArgs, device: torch.device) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: "
                            + lib.nann_select_error_string(err).decode())
-
-
-def _scratch(B: int, n: int, device: torch.device) -> torch.Tensor:
-    """The top-k's radix keys and indices, twice: [4, B, n] int32."""
-    return torch.empty((4, B, n), dtype=torch.int32, device=device)
 
 
 def blocks_per_sm(path: str, device: torch.device) -> int:
@@ -216,7 +236,9 @@ def row_sort(x: torch.Tensor, with_perm: bool = False):
 def row_topk(x: torch.Tensor, k: int, largest: bool = True):
     """(values [B, k], int32 indices [B, k]) of the k largest (or smallest)
     of each row of an int32 or float32 x [B, W], in the order of a stable
-    sort: ties to the lower index, as lax.top_k breaks them."""
+    sort: ties to the lower index, as lax.top_k breaks them. One call is one
+    launch in `.launches`, of one device kernel on the short path and ten
+    (nineteen when k > SHORT_ROW) on the tiled path (`_topk_plan`)."""
     _check_rows(x)
     k = int(k)
     if not 0 <= k <= x.shape[1]:
@@ -224,15 +246,17 @@ def row_topk(x: torch.Tensor, k: int, largest: bool = True):
     if x.device.type == "cpu":
         return row_topk_plain(x, k, largest)
     B, W = x.shape
+    words = _topk_plan(B, W, k)[2]
     values = torch.empty((B, k), dtype=x.dtype, device=x.device)
     indices = torch.empty((B, k), dtype=torch.int32, device=x.device)
     if values.numel():
-        scratch = _scratch(B, k, x.device)
+        scratch = torch.empty(words, dtype=torch.int32, device=x.device) \
+            if words else None
         _launch("nann_row_topk", SelectArgs(
             x=x.data_ptr(), out=values.data_ptr(), perm=indices.data_ptr(),
-            scratch=scratch.data_ptr(), B=B, W=W, K=k,
-            is_float=int(x.dtype == torch.float32), largest=int(largest)),
-            x.device)
+            scratch=scratch.data_ptr() if words else None, B=B, W=W, K=k,
+            scratch_words=words, is_float=int(x.dtype == torch.float32),
+            largest=int(largest)), x.device)
         row_topk.launches += 1
     return values, indices
 

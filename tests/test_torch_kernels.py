@@ -420,19 +420,88 @@ def test_row_sort_plan_matches_the_library(cuda):
         assert so.blocks_per_sm(path, cuda) >= 2
 
 
+# (W, k): the search's widths and the paths' boundaries (short rows up to
+# S keys, tiles above; k = W; k above S, whose winners go through the tiled
+# sort), with k in {1, W, 200, 4096, S, S + 1} where k <= W, and the
+# search's ground merge [4496] k 400
+_TOPK_WK = sorted({(W, k)
+                   for W in (1, 7, 90, 400, 2970, 4496, _S, _S + 1, 25600,
+                             33992, 100_000)
+                   for k in (1, W, 200, 4096, _S, _S + 1) if k <= W}
+                  | {(4496, 400)})
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32],
                          ids=["int32", "float32"])
 @pytest.mark.parametrize("largest", [True, False], ids=["largest", "smallest"])
-@pytest.mark.parametrize("W,k", [(90, 90), (2970, 200), (4496, 400),
-                                 (25600, 8192), (100000, 200), (7, 1)])
-def test_row_topk_matches_plain(cuda, dtype, largest, W, k):
-    x = _edge_rows(4, W, dtype, W + k).to(cuda)
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("W,k", _TOPK_WK)
+def test_row_topk_matches_plain(cuda, dtype, largest, B, W, k):
+    x = _edge_rows(B, W, dtype, W + k).to(cuda)
     before = so.row_topk.launches
     got_v, got_i = so.row_topk(x, k, largest)
     assert so.row_topk.launches == before + 1
     want_v, want_i = so.row_topk_plain(x, k, largest)
     _assert_bits_equal(got_v, want_v)
     torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("W,k", [(4496, 400), (33992, 4096), (100_000, 200)])
+def test_row_topk_is_deterministic(cuda, W, k):
+    """Two calls give the same bits: no place depends on which block ran
+    first."""
+    x = _edge_rows(64, W, torch.float32, W + 2).to(cuda)
+    first, second = so.row_topk(x, k), so.row_topk(x, k)
+    _assert_bits_equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("kind", ["equal", "neginf_run", "one_digit"])
+@pytest.mark.parametrize("W,k", [(5000, 1), (5000, 200), (5000, 4096),
+                                 (33992, 1), (33992, 200), (33992, 4096),
+                                 (33992, _S + 1)])
+def test_row_topk_tie_group_spans_tiles(cuda, kind, W, k):
+    """Tie groups across tiles (and across a short row's warps), taken
+    lowest index first: every key equal; a run of -inf from key 100 to
+    W - 100 after random keys, so that the k-th largest of a k above the 200
+    finite keys is -inf inside the run; float32 keys in [1, 2), which all
+    share their first digit (every seventh 1.5)."""
+    gen = torch.Generator().manual_seed(k)
+    if kind == "equal":
+        x = torch.full((3, W), -2.5)
+    elif kind == "neginf_run":
+        x = torch.randn((3, W), generator=gen)
+        x[:, 100:W - 100] = float("-inf")
+    else:
+        x = 1 + torch.rand((3, W), generator=gen)
+        x[:, ::7] = 1.5
+    x = x.to(cuda)
+    for largest in (True, False):
+        got_v, got_i = so.row_topk(x, k, largest)
+        want_v, want_i = so.row_topk_plain(x, k, largest)
+        _assert_bits_equal(got_v, want_v)
+        torch.testing.assert_close(got_i, want_i, rtol=0, atol=0)
+
+
+def test_row_topk_plan_matches_the_library(cuda):
+    """`_topk_plan`'s scratch is the library's, and the library refuses a
+    tiled top-k's scratch one word short."""
+    lib = so._library()
+    for B, W, k in [(1, _S, 200), (1, _S + 1, 1), (3, 3 * _T, _S),
+                    (64, 33992, 4096), (64, 33992, _S + 1),
+                    (64, 100_000, 200)]:
+        assert lib.nann_row_topk_scratch_words(B, W, k) == \
+            so._topk_plan(B, W, k)[2]
+    x = torch.zeros((2, 3 * _T), device=cuda)
+    words = so._topk_plan(2, 3 * _T, 200)[2]
+    scratch = torch.empty(words, dtype=torch.int32, device=cuda)
+    out = torch.empty((2, 200), device=cuda)
+    idx = torch.empty((2, 200), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        so._launch("nann_row_topk", so.SelectArgs(
+            x=x.data_ptr(), out=out.data_ptr(), perm=idx.data_ptr(),
+            scratch=scratch.data_ptr(), B=2, W=3 * _T, K=200,
+            scratch_words=words - 1, is_float=1, largest=1), x.device)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32],

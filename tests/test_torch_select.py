@@ -333,6 +333,40 @@ def test_sort_plan_by_width(B, W, path, tiles):
     assert words == bucket_end + B
 
 
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("W,k,path,tiles", [
+    (1, 1, "short", 1), (90, 90, "short", 1), (4496, 400, "short", 1),
+    (_S, _S, "short", 1), (_S + 1, 1, "tiled", 3), (_S + 1, _S, "tiled", 3),
+    (_S + 1, _S + 1, "tiled", 3), (3 * _T, 200, "tiled", 3),
+    (3 * _T + 1, 200, "tiled", 4), (25600, _S, "tiled", 7),
+    (33992, 4096, "tiled", 9), (33992, _S + 1, "tiled", 9),
+    (100_000, 200, "tiled", 25)])
+def test_topk_plan_by_width(B, W, k, path, tiles):
+    """The width picks the path as the sort's does; a tiled row is cut into
+    ceil(W / T) tiles, and its scratch covers the last word the kernels
+    index: one digit's tile counts, the tiles' keys below the bucket and in
+    it, the AND and OR of each tile's keys that share the prefix, the rows'
+    state, the winners' keys and indices, then the candidates'
+    (k <= S) or the sorted winners', their permutation and the tiled sort's
+    scratch of [B, k] (k > S)."""
+    got_path, got_tiles, words = so._topk_plan(B, W, k)
+    assert (got_path, got_tiles) == (path, tiles)
+    if path == "short":
+        assert words == 0
+        return
+    assert (tiles - 1) * _T < W <= tiles * _T
+    last_tile_hist = (B - 1) * tiles * 256 + (tiles - 1) * 256 + 255
+    state_end = B * tiles * 256 + 4 * B * tiles + B * so._STATE_WORDS
+    win_id_end = state_end + 2 * B * k
+    assert last_tile_hist < state_end
+    if k <= _S:
+        assert words == win_id_end + 2 * B * _S
+    else:
+        sort_words = so._sort_plan(B, k)[2]
+        assert so._sort_plan(B, k)[0] == "tiled"
+        assert words == win_id_end + 2 * B * k + sort_words
+
+
 @pytest.mark.parametrize("plain", [False, True])
 def test_selects_switch_all_three(plain):
     sel = so.selects(plain)
