@@ -199,6 +199,18 @@ frontier_scorer_kernel(const NannScorerArgs a) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // a block whose rows are all padding writes -inf and does nothing else
+  bool any = false;
+  for (int r = tid; r < kRows; r += kThreads) {
+    const int f = f0 + r;
+    any |= f < a.F && a.valid[(int64_t)b * a.F + f];
+  }
+  if (!__syncthreads_or(any)) {
+    if (tid < kRows && f0 + tid < a.F) {
+      a.out[(int64_t)b * a.F + f0 + tid] = -INFINITY;
+    }
+    return;
+  }
   const int XW = a.DU + a.D;  // x = [attention out | e]
   int PW = a.H1;
   PW = max(PW, a.DK);
