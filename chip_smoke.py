@@ -12,12 +12,18 @@ script exits non-zero:
   3 kernel   the frontier-scorer kernel against its plain PyTorch version on
              the card: ids [16, 4096] (L = 50 and 7) and the main path's
              shapes [64, 4096], [64, 2880], [64, 90] (L = 50), ~10% invalid,
-             into a 100k-row table, float32 and bfloat16; then packed int8
-             tables (int8 [N, 68]) at float32 and bfloat16 compute: ids
-             [64, 4096], [64, 2880] and [64, 90] into the 100k items, and
-             [64, 8192] into a 4,200,000-row table (the reference scale and
-             its frontier cap), timed with fresh ids on every call so that
-             its rows come from HBM; all timed with CUDA events. Then the
+             then [64, 2880] and [64, 4096] with a search-shaped mask (the
+             first 1,516 rows of each query valid, as the level-1 hop fills
+             them, padding after), into a 100k-row table, float32 and
+             bfloat16; then packed int8 tables (int8 [N, 68]) at float32 and
+             bfloat16 compute: ids [64, 4096], [64, 2880], [64, 90] and the
+             prefix-masked [64, 2880] into the 100k items, and [64, 8192]
+             into a 4,200,000-row table (the reference scale and its
+             frontier cap), timed with fresh ids on every call so that its
+             rows come from HBM; each case with its launch plan (rows a
+             block, shared bytes, blocks an SM: the wrapper's and the
+             device's), timed with CUDA events and by device time
+             (torch.profiler), the kernel's and the plain version's. Then the
              byte-map backend's kernels (gather_elems, gather_rows,
              scatter_set) against their plain versions, bit-exact, at the
              TPU probes' shapes (an int32 table of 200,064, 12,800 ids, also
@@ -112,7 +118,9 @@ from nann_tpu_torch.kernels import build as kernel_build
 from nann_tpu_torch.kernels import select_ops, visited_ops
 from nann_tpu_torch.kernels.frontier_scorer import (frontier_scorer_plain,
                                                     kernel_weights,
-                                                    score_frontier)
+                                                    library_plan,
+                                                    score_frontier,
+                                                    scorer_plan)
 from nann_tpu_torch.models import init_scorer
 from nann_tpu_torch.ops import fold_scorer, precompute_user
 from nann_tpu_torch.search import beam as search_beam
@@ -129,21 +137,30 @@ SCFG = SearchConfig()
 NUM_ITEMS = 100_000
 HNSW_M, HNSW_EF = 32, 64
 NUM_QUERIES = 64
-# (B, F, L): the issue's [16, 4096] at both L, then the main path's shapes
-# (the ground hops, the level-1 hop, the enter points)
-KERNEL_CASES = [(16, 4096, 50), (16, 4096, 7), (64, 4096, 50),
-                (64, 2880, 50), (64, 90, 50)]
+# (B, F, L, mask): [16, 4096] at both L, then the main path's shapes (the
+# ground hops, the level-1 hop, the enter points) with ~10% of the rows
+# invalid at random ("random"); then the level-1 hop's and a ground hop's
+# widths with the search's mask ("prefix"): each query's first LEVEL1_FILL
+# rows valid, padding after, as _select_fresh orders them
+KERNEL_CASES = [(16, 4096, 50, "random"), (16, 4096, 7, "random"),
+                (64, 4096, 50, "random"), (64, 2880, 50, "random"),
+                (64, 90, 50, "random"), (64, 2880, 50, "prefix"),
+                (64, 4096, 50, "prefix")]
 MAIN_SHAPE = (64, 4096, 50)
+# the rows the level-1 hop fills of its 2,880 slots on this workload
+# (num_scoring of a list search, PERF.md section 5)
+LEVEL1_FILL = 1516
 # the reference scale of bench.py, where int8 is the item table's default
 REF_ITEMS = 4_200_000
 # a frontier cap above any hop's expansion (400 candidates x degree 64 on
 # the ground level), so that no hop truncates
 NO_TRUNCATION_CAP = max(SCFG.top_k_per_level) * 2 * HNSW_M
-# (B, F, L, table) on packed int8 tables: the main path's ground hops,
-# level-1 hop and enter points, and a frontier at the reference scale's cap
-INT8_CASES = [(64, 4096, 50, "100k"), (64, 2880, 50, "100k"),
-              (64, 90, 50, "100k"),
-              (64, default_frontier_cap(REF_ITEMS), 50, "4.2M")]
+# (B, F, L, table, mask) on packed int8 tables: the main path's ground hops,
+# level-1 hop (also with the search's mask) and enter points, and a
+# frontier at the reference scale's cap
+INT8_CASES = [(64, 4096, 50, "100k", "random"), (64, 2880, 50, "100k", "random"),
+              (64, 90, 50, "100k", "random"), (64, 2880, 50, "100k", "prefix"),
+              (64, default_frontier_cap(REF_ITEMS), 50, "4.2M", "random")]
 TOL = {torch.float32: 2e-4, torch.bfloat16: 0.05}   # x (1 + |ref|)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}   # H100 SXM
 PEAK_BYTES = 3.35e12
@@ -295,30 +312,37 @@ def device_breakdown(fn):
     return groups if sum(groups.values()) > 0 else None
 
 
+def device_per_call(fn, symbols, calls=10, own_launches=None):
+    """(device ms, device kernels, {kernel name: (device ms, launches)}) per
+    call of fn(), from one torch.profiler session over `calls` calls: every
+    device kernel (and memset) the session records counts, so a wrapper that
+    launches several kernels a call is timed whole. None where it is not
+    measured. The tracer now and then records no kernel of a short session,
+    not the kernel's own (no name holds one of `symbols`), or, given
+    `own_launches` (the kernel's launches a call), fewer of them, so such a
+    session is taken once more."""
+    for _ in range(2):
+        events = device_events(lambda: [fn() for _ in range(calls)])
+        if events is None:
+            return None
+        own = [count for key, _, count in events
+               if any(k in key for k in symbols)]
+        if own and (own_launches is None
+                    or sum(own) == own_launches * calls):
+            return (sum(ms for _, ms, _ in events) / calls,
+                    sum(count for _, _, count in events) / calls,
+                    {kernel_name(key): (ms / calls, count / calls)
+                     for key, ms, count in events})
+    return None
+
+
 def device_ms_pair(kernel, library, symbols, calls=10):
     """The device milliseconds per call of kernel() and of library(), each
-    from its own torch.profiler session over `calls` calls: every device
-    kernel (and memset) a session records counts on its side, so a wrapper
-    that launches several kernels a call is timed whole. Also kernel()'s
+    from its own torch.profiler session (`device_per_call`); also kernel()'s
     device kernels per call, and {kernel name: (device ms, launches) per
-    call}. (None, None, None, None) where it is not measured. The tracer
-    now and then records no kernel of a short session, or not the kernel's
-    own (no name holds one of `symbols`), so such a session is taken once
-    more."""
-    def per_call(fn, want):
-        for _ in range(2):
-            events = device_events(lambda: [fn() for _ in range(calls)])
-            if events is None:
-                return None
-            if any(any(k in key for k in want) for key, _, _ in events):
-                return (sum(ms for _, ms, _ in events) / calls,
-                        sum(count for _, _, count in events) / calls,
-                        {kernel_name(key): (ms / calls, count / calls)
-                         for key, ms, count in events})
-        return None
-
-    own = per_call(kernel, symbols)
-    lib = per_call(library, ("",)) if own else None
+    call}. (None, None, None, None) where it is not measured."""
+    own = device_per_call(kernel, symbols, calls)
+    lib = device_per_call(library, ("",), calls) if own else None
     if own is None or lib is None:
         return None, None, None, None
     return own[0], lib[0], own[1], own[2]
@@ -364,10 +388,11 @@ def kernel_bound_ms(mcfg, dt, valid, L, weights, table):
         "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
 
 
-def hold_case(weights, k_proj, v, table, ids, valid, dt, label,
+def hold_case(weights, k_proj, v, table, ids, valid, dt, label, mask,
               timing_ids=None):
     """One kernel case against the plain version on the same inputs: the
-    -inf of invalid rows, the error, both times and the bound. With
+    -inf of invalid rows, the error, both times (CUDA events, and device
+    time from torch.profiler), the bound and the launch plan. With
     `timing_ids` (one id tensor per timed call, warm-up included) each timed
     call gathers other rows, so a table larger than L2 is read from HBM."""
     got = score_frontier(weights, k_proj, v, table, ids, valid)
@@ -391,19 +416,51 @@ def hold_case(weights, k_proj, v, table, ids, valid, dt, label,
     calls = iter(timing_ids or [])
     plain_ms = cuda_ms(lambda: frontier_scorer_plain(weights, k_proj, v, table,
                                                      ids_for_call(), valid))
+    calls = iter((timing_ids or [])[2:] * 2)
+    own = device_per_call(lambda: score_frontier(weights, k_proj, v, table,
+                                                 ids_for_call(), valid),
+                          ("frontier_scorer",), own_launches=1)
+    calls = iter((timing_ids or [])[2:] * 2)
+    plain = device_per_call(lambda: frontier_scorer_plain(
+        weights, k_proj, v, table, ids_for_call(), valid), ("",))
+    device_ms = own[0] if own else None
+    plain_device_ms = plain[0] if plain else None
     (B, F), L = ids.shape, k_proj.shape[1]
     bound, bound_by, flops, nbytes = kernel_bound_ms(MCFG, dt, valid, L,
                                                      weights, table)
+    plan = scorer_plan(weights, k_proj, v, table)
+    device_plan = library_plan(weights, k_proj, v, table, ids, valid)
+    if device_plan[:3] != plan[:3] or \
+            device_plan.blocks_per_sm < plan.blocks_per_sm:
+        raise AssertionError(f"launch plan {plan} differs from the "
+                             f"library's {device_plan}")
+    blocks = -(-F // plan.rows)
+    padded = torch.zeros((B, blocks * plan.rows), dtype=torch.bool,
+                         device=valid.device)
+    padded[:, :F] = valid
+    working = int(padded.view(B, blocks, plan.rows).any(-1).sum())
+    blocks *= B
     case = {"dtype": str(dt).replace("torch.", ""), "B": B, "F": F, "L": L,
-            "table": label,
+            "table": label, "mask": mask, "valid_rows": int(valid.sum()),
             "max_abs_err": err.max().item(), "max_rel_err": rel,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "flops": flops, "bytes": nbytes}
-    print(f"   kernel {case['dtype']:8s} {label:20s} ids [{B}, {F}] L={L:2d}: "
-          f"max|d|={case['max_abs_err']:.3e} "
+            "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            "plain_device_ms": plain_device_ms, "bound_ms": bound,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "rows_per_block": plan.rows, "smem_bytes": plan.smem_bytes,
+            "blocks_per_sm": device_plan.blocks_per_sm, "blocks": blocks,
+            "blocks_with_valid_rows": working}
+
+    def dev(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+    print(f"   kernel {case['dtype']:8s} {label:20s} ids [{B}, {F}] L={L:2d} "
+          f"{mask:6s}: max|d|={case['max_abs_err']:.3e} "
           f"max|d|/(1+|ref|)={rel:.3e} (tol {TOL[dt]}) "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound:.4f} ms ({bound_by})", flush=True)
+          f"kernel {ms:.4f} ms (device {dev(device_ms)}), plain "
+          f"{plain_ms:.4f} ms (device {dev(plain_device_ms)}), "
+          f"bound {bound:.4f} ms ({bound_by}); plan: {plan.rows} rows a "
+          f"block, {plan.smem_bytes} B shared, {plan.blocks_per_sm} blocks "
+          f"an SM (device: {device_plan.blocks_per_sm}); {working} of "
+          f"{blocks} blocks hold a valid row", flush=True)
     if rel > TOL[dt]:
         raise AssertionError(f"kernel disagrees with plain version: "
                              f"{rel} > {TOL[dt]} ({case})")
@@ -427,10 +484,14 @@ def check_kernel(params, state, table32, packed, gen):
     dev = table32.device
     folded = fold_scorer(params, state, MCFG)
 
-    def inputs(dt, B, F, L, n):
+    def inputs(dt, B, F, L, n, mask):
         ids = torch.randint(0, n, (B, F), generator=gen,
                             dtype=torch.int32).to(dev)
-        valid = (torch.rand((B, F), generator=gen) > 0.1).to(dev)
+        if mask == "prefix":
+            valid = (torch.arange(F) < LEVEL1_FILL).expand(B, F).contiguous()
+        else:
+            valid = torch.rand((B, F), generator=gen) > 0.1
+        valid = valid.to(dev)
         user = torch.randn((B, L, MCFG.user_emb_dim), generator=gen).to(dev)
         return (*precompute_user(folded, user, dt), ids, valid)
 
@@ -438,10 +499,10 @@ def check_kernel(params, state, table32, packed, gen):
     for dt in (torch.float32, torch.bfloat16):
         table = table32.to(dt).contiguous()
         weights = kernel_weights(folded, dt)
-        for B, F, L in KERNEL_CASES:
-            k_proj, v, ids, valid = inputs(dt, B, F, L, table.shape[0])
+        for B, F, L, mask in KERNEL_CASES:
+            k_proj, v, ids, valid = inputs(dt, B, F, L, table.shape[0], mask)
             cases.append(hold_case(weights, k_proj, v, table, ids, valid, dt,
-                                   f"{table.shape[0]:,} rows"))
+                                   f"{table.shape[0]:,} rows", mask))
     ref_table = random_packed_table(REF_ITEMS, MCFG.item_emb_dim, dev, seed=1)
     print(f"   packed int8 tables: {packed.shape[0]} x {packed.shape[1]} B "
           f"({packed.numel() / 1e6:.1f} MB), {ref_table.shape[0]} x "
@@ -449,9 +510,9 @@ def check_kernel(params, state, table32, packed, gen):
     int8_cases = []
     for dt in (torch.float32, torch.bfloat16):
         weights = kernel_weights(folded, dt)
-        for B, F, L, which in INT8_CASES:
+        for B, F, L, which, mask in INT8_CASES:
             table = packed if which == "100k" else ref_table
-            k_proj, v, ids, valid = inputs(dt, B, F, L, table.shape[0])
+            k_proj, v, ids, valid = inputs(dt, B, F, L, table.shape[0], mask)
             # the 4.2M table (285.6 MB) outgrows the 50 MB L2: fresh ids
             # for every timed call keep its rows from being read back warm
             timing_ids = None if which == "100k" else [
@@ -460,7 +521,7 @@ def check_kernel(params, state, table32, packed, gen):
                 for _ in range(TIMED_CALLS)]
             int8_cases.append(hold_case(weights, k_proj, v, table, ids, valid,
                                         dt, f"int8 {table.shape[0]:,} rows",
-                                        timing_ids))
+                                        mask, timing_ids))
     del ref_table
     return cases, int8_cases
 
@@ -1276,15 +1337,20 @@ def run(dev: torch.device, tmp: str) -> int:
             "replaces": replaces, "launches": launches,
             "launches_per_search": per_search,
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
+            "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "plain_device_ms": main["plain_device_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "rows_per_block": main["rows_per_block"],
+            "smem_bytes": main["smem_bytes"],
+            "blocks_per_sm": main["blocks_per_sm"],
             "shape": f"ids [{main['B']}, {main['F']}] {main['dtype']} "
                      f"L={main['L']}, {main['table']}",
             "card": card, "cases": all_cases}
 
     def main_case(of):
         return next(c for c in of if c["dtype"] == "bfloat16"
-                    and (c["B"], c["F"], c["L"]) == MAIN_SHAPE)
+                    and (c["B"], c["F"], c["L"]) == MAIN_SHAPE
+                    and c["mask"] == "random")
 
     def visited_entry(name, replaces):
         path_case = visited_cases[name][-1]

@@ -26,7 +26,13 @@ def brute_force_topk(params: Params, state: State, mcfg: ModelConfig,
                      k: int = 200, chunk_size: int = 8192
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """user_seq_emb [B, L, d_user], item_embs [N, d_item] ->
-    (top_idx [B, min(k, N)] int32 row indices, top_scores [B, min(k, N)]).
+    (top_idx [B, k] int32 row indices, top_scores [B, k]).
+
+    As the JAX oracle, which pads the catalogue to a multiple of chunk_size
+    and takes the top k of the padded width: for N < k <= N_pad (N rounded
+    up to chunk_size) the columns beyond N hold pad indices N, N+1, ...
+    (ascending: ties go to the lower index) scored -inf; k > N_pad raises
+    ValueError, where lax.top_k fails.
 
     item_embs is a float table: the oracle of an int8 index is the float
     table of the same items, as in the JAX package, which has no int8
@@ -39,6 +45,10 @@ def brute_force_topk(params: Params, state: State, mcfg: ModelConfig,
     dev = item_embs.device
     user = user_seq_emb.to(dev)
     B, n = user.shape[0], item_embs.shape[0]
+    n_pad = -(-n // chunk_size) * chunk_size
+    if k > n_pad:
+        raise ValueError(f"k = {k} exceeds the {n} items padded to "
+                         f"{n_pad} (chunk_size {chunk_size})")
     folded = fold_scorer(params, state, mcfg)
     k_proj, v = precompute_user(folded, user, dt)
     weights = kernel_weights(folded, dt)
@@ -48,6 +58,7 @@ def brute_force_topk(params: Params, state: State, mcfg: ModelConfig,
                            device=dev)[None].expand(B, -1).contiguous()
         valid = torch.ones(ids.shape, dtype=torch.bool, device=dev)
         chunks.append(score_frontier(weights, k_proj, v, item_embs, ids, valid))
-    top_scores, top_idx = select_ops.row_topk(torch.cat(chunks, dim=-1),
-                                              min(k, n))
+    if k > n:      # the padding's -inf columns that lax.top_k would reach
+        chunks.append(torch.full((B, k - n), float("-inf"), device=dev))
+    top_scores, top_idx = select_ops.row_topk(torch.cat(chunks, dim=-1), k)
     return top_idx, top_scores

@@ -90,15 +90,107 @@ def test_kernel_ragged_frontier(cuda, F):
     assert rel <= TOL[torch.bfloat16]
 
 
-def test_kernel_is_deterministic_per_row(cuda):
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("storage", ["rows", "int8"])
+def test_kernel_is_deterministic_per_row(cuda, dt, storage):
     """A row's score does not depend on the batch around it (the engine pads
     and groups requests freely)."""
-    w, k_proj, v, table, ids, valid = _inputs(SERVING, torch.bfloat16, cuda)
+    make = _inputs if storage == "rows" else _int8_inputs
+    w, k_proj, v, table, ids, valid = make(SERVING, dt, cuda)
     full = fs.score_frontier(w, k_proj, v, table, ids, valid)
     one = fs.score_frontier(w, k_proj[2:3].contiguous(), v[2:3].contiguous(),
                             table, ids[2:3].contiguous(),
                             valid[2:3].contiguous())
     assert torch.equal(full[2:3], one)
+
+
+def _prefix_valid(F, dev):
+    """Search-shaped masks: each query's valid rows first, padding after, at
+    ragged lengths (none, one, the 32-row and 128-row block edges, all)."""
+    lens = torch.tensor([0, 1, 31, 32, 33, 127, 128, 129, F])
+    return (torch.arange(F)[None] < lens[:, None]).to(dev)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("storage", ["rows", "int8"])
+def test_kernel_prefix_mask(cuda, dt, storage):
+    """Valid rows a prefix of each query, as the search gives them: whole
+    blocks of padding write -inf without scoring, the rest agree with the
+    plain version."""
+    make = _inputs if storage == "rows" else _int8_inputs
+    F = 300
+    w, k_proj, v, table, ids, _ = make(SERVING, dt, cuda, B=9, F=F)
+    valid = _prefix_valid(F, cuda)
+    got = fs.score_frontier(w, k_proj, v, table, ids, valid)
+    want = fs.frontier_scorer_plain(w, k_proj, v, table, ids, valid)
+    torch.cuda.synchronize()
+    assert torch.isneginf(got[~valid]).all()
+    assert torch.isfinite(got[valid]).all()
+    rel = ((got - want)[valid].abs() / (1 + want[valid].abs())).max().item()
+    assert rel <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("storage", ["rows", "int8"])
+def test_kernel_row_tiles_do_not_change_scores(cuda, dt, storage):
+    """The same ids scored at F and at F + 17 with trailing padding give
+    identical scores: where a frontier ends does not move a row's score."""
+    make = _inputs if storage == "rows" else _int8_inputs
+    F = 250
+    w, k_proj, v, table, ids, valid = make(SERVING, dt, cuda, B=3, F=F)
+    pad = torch.zeros((3, 17), dtype=torch.int32, device=cuda)
+    ids2 = torch.cat([ids, pad], dim=1)
+    valid2 = torch.cat([valid, pad.bool()], dim=1)
+    short = fs.score_frontier(w, k_proj, v, table, ids, valid)
+    long = fs.score_frontier(w, k_proj, v, table, ids2, valid2)
+    assert torch.equal(long[:, :F], short)
+    assert torch.isneginf(long[:, F:]).all()
+
+
+def test_kernel_opts_in_once_per_device(cuda):
+    """The shared-memory opt-in runs once per device (nann_scorer_init),
+    not in the launch: many launches in a row over both compute types and
+    both storages all run and agree with the plain version."""
+    import os
+    src = open(os.path.join(os.path.dirname(fs.__file__), os.pardir, "csrc",
+                            "frontier_scorer.cu")).read()
+    launch = src[src.index("int launch(const NannScorerArgs& a"):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "cudaFuncSetAttribute" not in launch
+    cases = [make(SERVING, dt, cuda, B=2, F=300)
+             for make in (_inputs, _int8_inputs)
+             for dt in (torch.bfloat16, torch.float32)]
+    for _ in range(8):
+        for args in cases:
+            got = fs.score_frontier(*args)
+            want = fs.frontier_scorer_plain(*args)
+            valid = args[-1]
+            rel = ((got - want)[valid].abs()
+                   / (1 + want[valid].abs())).max().item()
+            assert rel <= TOL[args[1].dtype]
+    torch.cuda.synchronize()
+    assert fs._init.cache_info().currsize == 1
+
+
+@pytest.mark.parametrize("mcfg", [SERVING, NARROW], ids=["serving", "narrow"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("storage", ["rows", "int8"])
+def test_scorer_plan_matches_the_library(cuda, mcfg, dt, storage):
+    """The wrapper's plan is the library's: rows, threads and shared memory
+    equal, and the device holds at least the blocks an SM it counts on (two
+    at the serving width)."""
+    make = _inputs if storage == "rows" else _int8_inputs
+    args = make(mcfg, dt, cuda, B=2, F=64)
+    plan = fs.scorer_plan(*args[:4])
+    got = fs.library_plan(*args)
+    assert got[:3] == plan[:3]
+    assert got.blocks_per_sm >= plan.blocks_per_sm
+    if mcfg is SERVING:
+        assert got.blocks_per_sm >= 2
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -287,3 +287,53 @@ def test_kernel_checks_reject_bad_inputs(fault):
         a["table"] = a["table"].t().contiguous().t()
     with pytest.raises((TypeError, ValueError)):
         fs._check(**a)
+
+
+# the serving width of bench.py and the NARROW configuration of
+# tests/test_torch_kernels.py: (D, DU, H1, DK, G1, G2, G3, L)
+SERVING_WIDTHS = (64, 64, 128, 256, 128, 64, 32, 50)
+NARROW_WIDTHS = (32, 32, 64, 128, 64, 32, 16, 12)
+
+
+@pytest.mark.parametrize("widths", [SERVING_WIDTHS, NARROW_WIDTHS],
+                         ids=["serving", "narrow"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("packed", [False, True], ids=["rows", "int8"])
+def test_scorer_plan(widths, dt, packed):
+    """The launch plan the wrapper mirrors from csrc/frontier_scorer.cu:
+    bfloat16 blocks of 128 rows (8 warps of 16 rows), float32 blocks of 32
+    rows and 256 threads; shared memory within a block's 232,448 bytes; two
+    blocks an SM at the serving width in both compute types; the same plan
+    for both storages."""
+    plan = fs._scorer_plan(dt, packed, *widths)
+    assert plan == fs._scorer_plan(dt, not packed, *widths)
+    if dt == torch.bfloat16:
+        assert (plan.rows, plan.threads) == (128, 256)
+    else:
+        assert (plan.rows, plan.threads) == (32, 256)
+    assert 0 < plan.smem_bytes <= 232_448
+    if widths == SERVING_WIDTHS:
+        assert plan.smem_bytes == {torch.bfloat16: 111_104,
+                                   torch.float32: 107_336}[dt]
+        assert plan.blocks_per_sm >= 2
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= 233_472
+
+
+def test_scorer_plan_takes_fewer_rows_for_wide_models():
+    """Rows a block depend on the widths alone: a model too wide for two
+    blocks of 128 bf16 rows takes fewer rows (here 32, in one block an SM);
+    widths no block holds get no plan, and the wrapper refuses them."""
+    wide = (64, 64, 512, 512, 256, 512, 32, 50)
+    plan = fs._scorer_plan(torch.bfloat16, False, *wide)
+    assert (plan.rows, plan.threads, plan.blocks_per_sm) == (32, 64, 1)
+    assert plan.smem_bytes <= 232_448
+    assert fs._scorer_plan(torch.bfloat16, False, 64, 64, 2048, 512, 256,
+                           2048, 32, 50).rows == 0
+    a = _kernel_inputs(torch.bfloat16)
+    a["weights"]["q1_k"] = torch.zeros(32, 4096, dtype=torch.bfloat16)
+    a["weights"]["q1_b"] = a["weights"]["q1_alpha"] = torch.zeros(4096)
+    a["weights"]["q2_k"] = torch.zeros(4096, a["k_proj"].shape[2],
+                                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs._check(**a)

@@ -286,6 +286,34 @@ def test_brute_force_matches_jax(graph):
                                atol=2e-4)
 
 
+def test_brute_force_pads_like_jax_when_k_exceeds_the_catalogue(graph):
+    """k > n: JAX pads the catalogue to a multiple of chunk_size and takes
+    the top k of the padded width, so the tail holds pad indices n, n+1, ...
+    scored -inf; the port returns the same [B, k]. k beyond the padded
+    width is refused, where lax.top_k fails."""
+    jcfg, jp, js, params, state, jidx, tidx, users, _ = graph
+    n, k = 50, 64
+    want_idx, want_scores = j_brute_force(
+        jp, js, jcfg, jnp.asarray(users[:2]), jidx.item_embs[:n], k=k,
+        chunk_size=512)
+    got_idx, got_scores = brute_force_topk(
+        params, state, port_config(jcfg), torch.from_numpy(users[:2]),
+        tidx.item_embs[:n].contiguous(), k=k, chunk_size=512)
+    want_idx, want_scores = np.asarray(want_idx), np.asarray(want_scores)
+    assert got_idx.shape == want_idx.shape == (2, k)
+    np.testing.assert_array_equal(got_idx.numpy(), want_idx)
+    np.testing.assert_array_equal(np.isneginf(got_scores.numpy()),
+                                  np.isneginf(want_scores))
+    np.testing.assert_array_equal(got_idx.numpy()[:, n:],
+                                  np.broadcast_to(np.arange(n, k), (2, k - n)))
+    np.testing.assert_allclose(got_scores.numpy(), want_scores, rtol=2e-4,
+                               atol=2e-4)
+    with pytest.raises(ValueError):
+        brute_force_topk(params, state, port_config(jcfg),
+                         torch.from_numpy(users[:2]),
+                         tidx.item_embs[:n].contiguous(), k=65, chunk_size=64)
+
+
 def test_search_index_from_artifacts(graph):
     *_, tidx, _users, d = graph
     art = load_index(d, 2)
