@@ -291,7 +291,6 @@ __device__ void gemm_tile(const float* X, int xs, int K,
 #pragma unroll
       for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
     }
-#pragma unroll 2
     for (int k = 0; k < K; k += 4) {
       float w[4][CT];
 #pragma unroll
@@ -532,8 +531,8 @@ __device__ __forceinline__ void cp_async16(bf16* dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // Two floats rounded to bf16, the first in the low half (the lower column).
@@ -739,10 +738,15 @@ __device__ void score_bf16(const NannScorerArgs& a, unsigned char* smem) {
       ++next;
       next_n0 = 0;
     }
-    if (next < kLayers) stage_chunk(a, pl, next, next_n0, Wb + ((c + 1) & 1) * wbuf);
-    cp_async_commit();
-    cp_async_wait_one();
+    // chunk c has landed, and every warp is done with chunk c - 1, whose
+    // buffer takes chunk c + 1 while this one is multiplied: one barrier
+    // a chunk
+    cp_async_wait_all();
     __syncthreads();
+    if (next < kLayers) {
+      stage_chunk(a, pl, next, next_n0, Wb + ((c + 1) & 1) * wbuf);
+    }
+    cp_async_commit();
     const bf16* W = Wb + (c & 1) * wbuf;
     if (live) {
       float acc[4][4];
@@ -891,12 +895,12 @@ __device__ void score_bf16(const NannScorerArgs& a, unsigned char* smem) {
         }
       }
     }
-    __syncthreads();
     layer = next;
     n0 = next_n0;
   }
 
   // last layer (one output): a warp reduction per row; lane i keeps row i
+  __syncwarp();  // h3's outputs, stored by the other lanes
   const bf16* h4 = static_cast<const bf16*>(a.h4_k);
   float res = 0.f;
   if (live) {
