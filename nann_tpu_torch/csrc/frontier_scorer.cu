@@ -234,9 +234,6 @@ LaunchPlan launch_plan(const NannScorerArgs& a) {
 
 // ---------------------------------------------------------------- common
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ float prelu(float x, float a) {
   return fmaxf(x, 0.f) + a * fminf(x, 0.f);
 }
@@ -634,29 +631,20 @@ __device__ __forceinline__ void mma_chunk(float acc[4][4], const bf16* A,
 }
 
 // Store a chunk's outputs epi(acc, n) as bf16 into the warp's rows of Y
-// (stride ys) at columns n0 + 8t + 2q, +1, rows g and g + 8. Every output
-// is made before the first store, so the epilogue's loads of its vectors
-// go out together.
+// (stride ys) at columns n0 + 8t + 2q, +1, rows g and g + 8.
 template <class Epi>
 __device__ __forceinline__ void store_chunk(const float acc[4][4], bf16* Y,
                                             int ys, int n0, int nc, Epi epi) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  uint32_t y[4][2];
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    const int n = n0 + 8 * t + 2 * q;
     if (8 * t < nc) {
-      y[t][0] = pack_bf16(epi(acc[t][0], n), epi(acc[t][1], n + 1));
-      y[t][1] = pack_bf16(epi(acc[t][2], n), epi(acc[t][3], n + 1));
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int n = n0 + 8 * t + 2 * q;
-    if (8 * t < nc) {
-      *reinterpret_cast<uint32_t*>(Y + g * ys + n) = y[t][0];
-      *reinterpret_cast<uint32_t*>(Y + (g + 8) * ys + n) = y[t][1];
+      const int n = n0 + 8 * t + 2 * q;
+      *reinterpret_cast<uint32_t*>(Y + g * ys + n) =
+          pack_bf16(epi(acc[t][0], n), epi(acc[t][1], n + 1));
+      *reinterpret_cast<uint32_t*>(Y + (g + 8) * ys + n) =
+          pack_bf16(epi(acc[t][2], n), epi(acc[t][3], n + 1));
     }
   }
 }
