@@ -371,6 +371,163 @@ def test_visited_ops_reject_what_they_do_not_take(cuda):
         vo.scatter_set(vis, ids.cpu(), 1)
 
 
+def _bench_visited():
+    """scripts/bench_visited.py, whose `plan_bounds` lists the shapes on
+    each side of every bound of the plan."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts",
+                        "bench_visited.py")
+    spec = importlib.util.spec_from_file_location("bench_visited", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_PATH_CASES = _bench_visited().plan_bounds(vo, vo.H100_SMS)
+
+
+def _element_inputs(op, dtype, rows, M, span, seed):
+    """A table of `rows` x (span + 7) (a scatter's: rows x span) and ids in
+    [-9, W + 9): below 0, past the clip bound and past the row, with
+    repeats."""
+    gen = torch.Generator().manual_seed(seed)
+    W = span + 7
+    width = span if op == "scatter" else W
+    table = torch.randint(0, 250, (rows, width), generator=gen,
+                          dtype=torch.int32).to(dtype)
+    ids = torch.randint(-9, W + 9, (rows, M), generator=gen, dtype=torch.int32)
+    arg = 7 if op == "scatter" else span - 1
+    return table, ids, arg
+
+
+def _run_element(op, table, ids, arg):
+    """(kernel, plain) outputs; a scatter on two copies of the table."""
+    if op == "gather":
+        return (vo.gather_elems(table, ids, arg),
+                vo.gather_elems_plain(table, ids, arg))
+    return (vo.scatter_set(table.clone(), ids, arg),
+            vo.scatter_set_plain(table.clone(), ids, arg))
+
+
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("case", range(len(_PATH_CASES)))
+def test_element_kernels_match_plain_on_both_paths(cuda, op, dtype, case):
+    """gather_elems and scatter_set bit-exact against their plain versions
+    on each side of every plan bound (scripts/bench_visited.py's
+    plan_bounds; only an int32 gather is staged): odd
+    widths, hi below the row's end, ids below 0 and past the row, repeated
+    ids (a scatter's store one value), a row and its ids filling a block's
+    shared memory."""
+    label, rows, M, span, staged = _PATH_CASES[case]
+    table, ids, arg = _element_inputs(op, dtype, rows, M, span, case)
+    table, ids = table.to(cuda), ids.to(cuda)
+    staged &= op == "gather" and dtype == torch.int32
+    assert vo.visited_plan(op, table, ids, arg).path == \
+        ("staged" if staged else "global"), label
+    before = _launches()
+    got, want = _run_element(op, table, ids, arg)
+    torch.cuda.synchronize()
+    assert _launches()[0 if op == "gather" else 2] == \
+        before[0 if op == "gather" else 2] + 1
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_element_kernels_take_ids_off_16_bytes(cuda, op, dtype, offset):
+    """Ids whose base is not 16-byte aligned (a view at an offset), on a
+    shared row and on per-query rows of both paths (the last shape stages an
+    int32 gather)."""
+    gen = torch.Generator().manual_seed(offset)
+    for rows, W, M in ((1, 5003, 999), (6, 501, 333), (6, 4099, 37),
+                       (64, 8003, 4097)):
+        shared = rows == 1
+        table = torch.randint(0, 250, (W,) if shared else (rows, W),
+                              generator=gen, dtype=torch.int32).to(dtype)
+        flat = torch.randint(-9, W + 9, (rows * M + offset,), generator=gen,
+                             dtype=torch.int32).to(cuda)
+        ids = flat[offset:].view(rows, M)
+        assert ids.data_ptr() % 16 != 0
+        arg = 7 if op == "scatter" else W - 2
+        table = table.to(cuda)
+        staged = vo.visited_plan(op, table, ids, arg).path == "staged"
+        assert staged == (rows == 64 and op == "gather"
+                          and dtype == torch.int32)
+        _assert_bits_equal(*_run_element(op, table, ids, arg))
+
+
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32],
+                         ids=["uint8", "int32"])
+def test_element_kernels_take_more_rows_than_the_grid_height(cuda, op, dtype):
+    """Past MAX_GRID_Y query rows the grid's rows stride over the rest."""
+    rows = vo.MAX_GRID_Y + 7
+    table, ids, arg = _element_inputs(op, dtype, rows, 3, 5, rows)
+    assert vo.visited_plan(op, table, ids, arg).grid[1] == vo.MAX_GRID_Y
+    _assert_bits_equal(*_run_element(op, table.to(cuda), ids.to(cuda), arg))
+
+
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_query", "shared"])
+def test_element_kernels_take_empty_ids(cuda, op, shared):
+    table = torch.arange(60, dtype=torch.int32, device=cuda)
+    if not shared:
+        table = table.view(3, 20)
+    ids = torch.empty((3, 0), dtype=torch.int32, device=cuda)
+    before = _launches()
+    got, want = _run_element(op, table, ids, 7 if op == "scatter" else 19)
+    assert _launches() == before
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("case", range(len(_PATH_CASES)))
+def test_visited_plan_matches_the_library(cuda, op, dtype, case):
+    """The wrapper's plan is the library's at the device's SM count, and the
+    device holds the blocks an SM the plan counts on: one wave of
+    WAVE_BLOCKS_PER_SM on the global path, one staged block; a staged block
+    of span and ids that fill shared memory takes all of it."""
+    _label, rows, M, span, _staged = _PATH_CASES[case]
+    table, ids, arg = _element_inputs(op, dtype, rows, M, span, case)
+    table, ids = table.to(cuda), ids.to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got, blocks = vo.library_plan(op, table, ids, arg)
+    assert got == vo.visited_plan(op, table, ids, arg, sms)
+    assert blocks >= (1 if got.path == "staged" else vo.WAVE_BLOCKS_PER_SM)
+    if got.path == "staged" and \
+            _PATH_CASES[case][0] == "span and ids filling shared memory":
+        assert got.smem_bytes == vo.BLOCK_SMEM
+
+
+def test_visited_ops_opt_in_once_per_device(cuda):
+    """The shared-memory opt-in runs once per device (nann_visited_init),
+    not in a launch: many staged and global launches in a row all agree
+    with the plain versions."""
+    import os
+    src = open(os.path.join(os.path.dirname(vo.__file__), os.pardir, "csrc",
+                            "visited_ops.cu")).read()
+    launches = src[src.index("template <typename T>\nint launch_gather_elems"):
+                   src.index("// The kernel of a")]
+    assert "cudaFuncSetAttribute" not in launches
+    for _ in range(4):
+        for dtype in (torch.uint8, torch.int32):
+            for case in (0, 1, len(_PATH_CASES) - 1):
+                _label, rows, M, span, _ = _PATH_CASES[case]
+                for op in ("gather", "scatter"):
+                    table, ids, arg = _element_inputs(op, dtype, rows, M,
+                                                      span, case)
+                    _assert_bits_equal(*_run_element(op, table.to(cuda),
+                                                     ids.to(cuda), arg))
+    assert vo._init.cache_info().currsize == 1
+
+
 def test_bytemap_search_kernel_path(cuda, tmp_path):
     """The byte-map search on the kernels: every new kernel launches, its
     ids equal the list search's (the same scorer kernel scores the same
@@ -429,7 +586,9 @@ def _edge_rows(B, W, dtype, seed):
 
 def _assert_bits_equal(got, want):
     assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
 
 
 _T, _S = so.SORT_TILE, so.SHORT_ROW

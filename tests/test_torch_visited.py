@@ -232,6 +232,128 @@ def test_args_struct_layout():
     assert vo.VisitedArgs.elem_size.offset == 76
 
 
+# ------------------------------------------- the element kernels' launch plan
+
+# (label, op, element bytes, B, M, per query, span, path) at the search's
+# shapes on chip_smoke's workload (100,000 items, trash 400 x 64, B = 64)
+_PATH_PLANS = [
+    ("vis_unvisited", "gather", 1, 64, 25_600, True, 100_001, "global"),
+    ("vis_mark, filtered hop", "scatter", 1, 64, 25_600, True, 125_600,
+     "global"),
+    ("vis_mark, wide hop", "scatter", 1, 64, 8_192, True, 125_600, "global"),
+    ("vis_reset_mark", "scatter", 1, 64, 400, True, 125_600, "global"),
+    ("lane gather, _masked_topk ids", "gather", 4, 64, 400, True, 4_496,
+     "global"),
+    ("lane gather, approx keys", "gather", 4, 64, 4_096, True, 33_992,
+     "global"),
+    ("lane gather, wide neighbours", "gather", 4, 64, 8_192, True, 25_600,
+     "staged"),
+    ("take_ids", "gather", 4, 1, 64 * 200, False, 100_000, "global"),
+    ("probe build_gather_flat", "gather", 4, 1, 12_800, False, 200_064,
+     "global"),
+    ("probe build_scatter", "scatter", 4, 1, 12_800, False, 200_064,
+     "global"),
+]
+
+
+def _plan(op, sz, B, M, per_query, span, sms=vo.H100_SMS):
+    return vo._visited_plan(op == "scatter", sz, B, M, per_query, span, sms)
+
+
+def _staged_smem(span_bytes, M):
+    def copy(n):
+        return -(-n // 16) * 16 + 16
+    return vo.BARRIER_BYTES + copy(span_bytes) + copy(4 * M)
+
+
+@pytest.mark.parametrize("case", _PATH_PLANS, ids=[c[0] for c in _PATH_PLANS])
+def test_visited_plan_at_the_path_shapes(case):
+    """The path the search's shapes take, and what each path's plan holds:
+    a staged plan one block of STAGE_THREADS a query row, its shared bytes
+    the barrier, the span and the row of ids, each padded to 16 bytes and
+    one 16-byte unit more; a global plan one resident wave of 256-thread
+    blocks at most, no more blocks a row than its ids fill."""
+    _label, op, sz, B, M, per_query, span, path = case
+    p = _plan(op, sz, B, M, per_query, span)
+    assert p.path == path
+    if path == "staged":
+        assert p == vo.VisitedPlan("staged", (1, B), vo.STAGE_THREADS,
+                                   _staged_smem(span * sz, M))
+        assert p.smem_bytes <= vo.BLOCK_SMEM
+    else:
+        gx, gy = p.grid
+        assert (p.threads, p.smem_bytes) == (vo.THREADS, 0)
+        assert gy == min(B, vo.MAX_GRID_Y)
+        waves = vo.SCATTER_WAVES if op == "scatter" else vo.GATHER_WAVES
+        assert gx * gy <= vo.H100_SMS * vo.WAVE_BLOCKS_PER_SM * waves + gy
+        assert (gx - 1) * vo.THREADS < M
+
+
+def test_visited_plan_stages_only_the_clip_span():
+    """A staged gather stages [0, hi] of its row, not what lies past hi."""
+    table = torch.zeros((64, 25_600), dtype=torch.int32)
+    ids = torch.zeros((64, 8_192), dtype=torch.int32)
+    whole = vo.visited_plan("gather", table, ids, 25_599)
+    part = vo.visited_plan("gather", table, ids, 15_999)
+    assert whole.path == part.path == "staged"
+    assert whole.smem_bytes - part.smem_bytes == 4 * 9_600
+
+
+def _bench_visited():
+    """scripts/bench_visited.py, whose `plan_bounds` lists the shapes on
+    each side of every bound of the plan."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "scripts",
+                        "bench_visited.py")
+    spec = importlib.util.spec_from_file_location("bench_visited", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# (label, rows, ids a row, span, staged): int32 gathers on each side of
+# every bound of the staged path on 132 SMs
+_BOUNDS = _bench_visited().plan_bounds(vo, vo.H100_SMS)
+
+
+@pytest.mark.parametrize("case", _BOUNDS, ids=[c[0] for c in _BOUNDS])
+def test_visited_plan_bounds(case):
+    """Each side of every bound of the staged path: the cost ratio, the
+    least ids of a launch, one row an SM, shared memory. Only a gather of
+    int32 rows, one per query, is ever staged; no plan asks for more shared
+    memory than a block has."""
+    _label, B, M, span, staged = case
+    p = _plan("gather", 4, B, M, True, span)
+    assert p.path == ("staged" if staged else "global")
+    assert p.smem_bytes <= vo.BLOCK_SMEM
+    if staged:
+        assert p.smem_bytes == _staged_smem(span * 4, M)
+    if _label == "span and ids filling shared memory":
+        assert p.smem_bytes == vo.BLOCK_SMEM
+    for op, sz, per_query in (("gather", 4, False), ("gather", 1, True),
+                              ("scatter", 4, True), ("scatter", 1, True)):
+        assert _plan(op, sz, B, M, per_query, span).path == "global"
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 1000, 70_000])
+@pytest.mark.parametrize("M", [1, 3, 4, 400, 25_600, 1_000_000])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+def test_visited_plan_global_grid(B, M, sms, op):
+    """The global path's grid: GATHER_WAVES (SCATTER_WAVES) resident waves
+    of the device's SMs at most (WAVE_BLOCKS_PER_SM blocks an SM, rounded up
+    to whole rows), at least one block a row, and no more blocks a row than
+    its ids fill at one a thread; past MAX_GRID_Y rows, the grid's rows
+    stride over the rest."""
+    p = _plan(op, 4, B, M, False, 10**9, sms)
+    gx, gy = p.grid
+    waves = vo.SCATTER_WAVES if op == "scatter" else vo.GATHER_WAVES
+    wave = sms * vo.WAVE_BLOCKS_PER_SM * waves
+    assert p.path == "global" and gy == min(B, vo.MAX_GRID_Y) and gx >= 1
+    assert gx == min(-(-wave // gy), -(-M // vo.THREADS))
+
+
 # --------------------------------------------------- one hop, both backends
 
 
