@@ -25,13 +25,22 @@ script exits non-zero:
              device's), timed with CUDA events and by device time
              (torch.profiler), the kernel's and the plain version's. Then the
              byte-map backend's kernels (gather_elems, gather_rows,
-             scatter_set) against their plain versions, bit-exact, at the
-             TPU probes' shapes (an int32 table of 200,064, 12,800 ids, also
-             as [1563, 128]; the lane gather [100, 128] x [100, 128]) and at
-             the search's shapes (uint8 [64, 125,600] x ids [64, 25,600];
-             neighbours [100,000, 64] x ids [64, 400]; the lane gathers
-             behind its top-ks), each with its bound and the time of one
-             PyTorch call that computes the same function. Then the row sort
+             scatter_set) against their plain versions, bit-exact: the row
+             gather at the TPU probe's shape and at neighbours [100,000, 64]
+             x ids [64, 400]; the element gather and the scatter at every
+             case of scripts/bench_visited.py: the TPU probes' shapes (an
+             int32 table of 200,064, 12,800 ids, also as [1563, 128]; the
+             lane gather [100, 128] x [100, 128]), the search's shapes (uint8
+             [64, 125,600] x ids [64, 25,600], the lane gathers behind its
+             top-ks) in random order and in the search's own orders
+             (vis_unvisited on sorted ids with n pads, vis_mark on
+             _pad_trash of sorted ids with 4,096 marks a row, the wide hop's
+             neighbour-row and score orders, top-k order for the lane
+             gathers), and each side of every bound of the launch plan
+             (_visited_plan; rows that start off 16 bytes); each case with
+             its plan (path, grid, threads, shared bytes, blocks an SM), its
+             bound and the time of one PyTorch call that computes the same
+             function. Then the row sort
              and row top-k (row_sort, row_topk) against their plain versions,
              bit-exact in values and indices, at the TPU probes' shapes
              ([100, 128] sort, 12,800 -> 128 top-k) and at every shape the
@@ -85,7 +94,9 @@ script exits non-zero:
              scorer's launch widths at those caps
   8 kernels  one JSON line {"kernels": [...]}: frontier_scorer,
              frontier_scorer_int8, gather_elems (also the lane gather),
-             gather_rows, scatter_set, row_sort, row_topk
+             gather_rows, scatter_set, row_sort, row_topk; gather_elems and
+             scatter_set with the plan of their entry's case (the byte-map
+             search's filtered hop in its sorted id order)
   9 result   the last line: {"ok": true, "device": {...}}
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -129,6 +140,7 @@ from nann_tpu_torch.search import (SearchIndex, brute_force_topk,
                                    level_topn_default, make_searcher)
 from nann_tpu_torch.serving import Engine, EngineConfig
 from nann_tpu_torch.utils import calc_pr
+from scripts import bench_visited
 
 # the serving width of bench.py: item/user embeddings 64, attention
 # 64 -> 128 -> 256, head (128, 64, 32, 1)
@@ -167,10 +179,6 @@ PEAK_BYTES = 3.35e12
 MIN_OVERLAP = 0.98
 # the TPU probes' shapes (scripts/probe_kernel_ops.py:26-27, 169-172)
 PROBE_ITEMS, PROBE_IDS = 200_064, 12_800
-# the byte-map's shapes on the main path: [B, n + trash] with trash = 400
-# candidates x degree 64, a whole ground expansion of 400 x 64 ids, and the
-# 400 ground candidates' neighbour rows
-TRASH = max(SCFG.top_k_per_level) * 2 * HNSW_M
 VISITED_OPS = (visited_ops.gather_elems, visited_ops.gather_rows,
                visited_ops.scatter_set)
 SELECT_OPS = (select_ops.row_sort, select_ops.row_topk)
@@ -217,11 +225,6 @@ TOPK_TIE_CASES = [("every key equal", "equal", 33992, 4096),
                   ("-inf run over 7 tiles, k-th in it", "neginf_run", 33992,
                    6000),
                   ("first digit shared", "one_digit", 33992, 4096)]
-# (label, W, K): the lane gathers (gather_elems with hi = W - 1):
-# _masked_topk's id gather, the approx key gather, the wide hop's neighbour
-# gather
-TAKE_CASES = [("_masked_topk ids", 4496, 400), ("approx keys", 33992, 4096),
-              ("wide neighbours", 25600, 8192)]
 # row_sort calls of a list search on this workload: the merge and the
 # "exact" selection of each of its 4 hops (level 1, three ground hops); its
 # row_topk calls: the enter points, the merge and the candidates of each
@@ -230,6 +233,10 @@ SORTS_PER_LIST_SEARCH = 8
 TOPKS_PER_LIST_SEARCH = 10
 MAIN_SELECT = {"row_sort": "merge, ground 3",
                "row_topk": "merge, ground 2-3"}
+# the case of each element kernel's entry in the kernels line: the byte-map
+# search's filtered hop, in the search's id order
+MAIN_VISITED = {"gather_elems": "search: vis_unvisited, sorted expansion",
+                "scatter_set": "search: vis_mark, sorted with"}
 
 
 @contextlib.contextmanager
@@ -585,109 +592,77 @@ def hold_exact(name, label, kernel, plain, library, nbytes, compare=None,
 
 
 def check_visited_kernels(dev):
-    """Phase 3, second half: the byte-map kernels against their plain
-    versions at the TPU probes' shapes (the probe's inputs, from its numpy
-    seed) and at the main path's. Returns {kernel name: [cases]}, the
-    path's case last. The library calls take int64 indices, made before the
-    timing."""
+    """Phase 3, second half: the byte-map's and the lane gathers' kernels
+    against their plain versions. gather_rows at the TPU probe's shape (the
+    probe's inputs, from its numpy seed) and at the main path's;
+    gather_elems and scatter_set at every case of scripts/bench_visited.py:
+    the probes' shapes, the search's shapes in random order and in the
+    search's own id orders, and each side of every bound of the plan, each
+    case with the plan the library picked. Returns {kernel name: [cases]};
+    MAIN_VISITED names the case of each kernel's entry in the kernels line,
+    gather_rows' is its last. The library calls take int64 indices, made
+    before the timing."""
     vo = visited_ops
     rng = np.random.default_rng(0)
     tab = torch.from_numpy(rng.integers(0, 250, PROBE_ITEMS).astype(
         np.int32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, PROBE_ITEMS, PROBE_IDS).astype(
         np.int32)).to(dev)
-    tab2d, idx2d = tab.view(-1, 128), idx.view(-1, 128)
-    rows = (idx2d[:, 0] // 128).contiguous()
-    n, B, width = NUM_ITEMS, NUM_QUERIES, TRASH
+    tab2d = tab.view(-1, 128)
+    rows = (idx.view(-1, 128)[:, 0] // 128).contiguous()
+    n, B = NUM_ITEMS, NUM_QUERIES
     gen = torch.Generator(device=dev).manual_seed(0)
-    vis = torch.randint(0, 3, (B, n + TRASH), generator=gen, device=dev,
-                        dtype=torch.uint8)
-    nb = torch.randint(0, n + 1, (B, width), generator=gen, device=dev,
-                       dtype=torch.int32)
-    # unique ids per query, as _pad_trash makes them
-    marks = torch.rand((B, n + TRASH), generator=gen, device=dev).argsort(
-        dim=1)[:, :width].int().contiguous()
     neigh = torch.randint(0, n, (n, 2 * HNSW_M), generator=gen, device=dev,
                           dtype=torch.int32)
     cand = torch.randint(0, n, (B, 400), generator=gen, device=dev,
                          dtype=torch.int32)
-    i64 = {k: t.long() for k, t in (("idx", idx), ("idx2d", idx2d),
-                                     ("rows", rows), ("nb", nb),
-                                     ("marks", marks), ("cand", cand))}
-    tab_w, vis_w = tab.clone(), vis.clone()   # written by the timed scatters
-    flat = "int32 [200064]"
-
-    def take_case(label, table, ids):
-        """The lane gather take_along_axis(table, ids, 1): gather_elems of a
-        per-query table with hi = W - 1 (beam._take_along); float32 rows
-        move as their bits."""
-        hi, ids64 = table.shape[1] - 1, ids.long()
-        kind = str(table.dtype).replace("torch.", "")
-        bits = table.view(torch.int32)
-        return hold_exact(
-            "gather_elems", f"{label}: {kind} {list(table.shape)} x "
-            f"{list(ids.shape)}", lambda: vo.gather_elems(bits, ids, hi),
-            lambda: vo.gather_elems_plain(bits, ids, hi),
-            lambda: torch.gather(table, 1, ids64), ids.numel() * 12)
-
-    take_cases = [take_case("probe build_take_along", tab2d[:idx2d.shape[0]],
-                            (idx2d % 128).contiguous())]
-    for label, W, K in TAKE_CASES:
-        for dt in (torch.int32, torch.float32):
-            take_cases.append(take_case(
-                f"lane gather, {label}", edge_rows(B, W, dt, gen),
-                torch.randint(0, W, (B, K), generator=gen, device=dev,
-                              dtype=torch.int32)))
-    ge = [
-        hold_exact(
-            "gather_elems", f"probe build_gather_flat: {flat} x [12800]",
-            lambda: vo.gather_elems(tab, idx, PROBE_ITEMS - 1),
-            lambda: vo.gather_elems_plain(tab, idx, PROBE_ITEMS - 1),
-            lambda: torch.take(tab, i64["idx"]), PROBE_IDS * 12),
-        hold_exact(
-            "gather_elems", "probe build_gather_2d: int32 [1563, 128] x "
-            "[100, 128]",
-            lambda: vo.gather_elems(tab, idx2d, PROBE_ITEMS - 1),
-            lambda: vo.gather_elems_plain(tab, idx2d, PROBE_ITEMS - 1),
-            lambda: torch.take(tab2d, i64["idx2d"]), PROBE_IDS * 12),
-        *take_cases,
-        hold_exact(
-            "gather_elems", f"path vis_unvisited: uint8 [{B}, {n + TRASH}] "
-            f"x [{B}, {width}]",
-            lambda: vo.gather_elems(vis, nb, n),
-            lambda: vo.gather_elems_plain(vis, nb, n),
-            lambda: torch.gather(vis, 1, i64["nb"]), B * width * 6)]
+    rows64, cand64 = rows.long(), cand.long().view(-1)
     gr = [
         hold_exact(
             "gather_rows", "probe build_gather_rows: int32 [1563, 128] x [100]",
             lambda: vo.gather_rows(tab2d, rows),
             lambda: vo.gather_rows_plain(tab2d, rows),
-            lambda: torch.index_select(tab2d, 0, i64["rows"]),
+            lambda: torch.index_select(tab2d, 0, rows64),
             rows.numel() * (4 + 2 * 128 * 4)),
         hold_exact(
             "gather_rows", f"path take_rows: int32 [{n}, {2 * HNSW_M}] x "
             f"[{B}, 400]",
             lambda: vo.gather_rows(neigh, cand),
             lambda: vo.gather_rows_plain(neigh, cand),
-            lambda: torch.index_select(neigh, 0, i64["cand"].view(-1)),
+            lambda: torch.index_select(neigh, 0, cand64),
             cand.numel() * (4 + 2 * 2 * HNSW_M * 4))]
-    ss = [
-        hold_exact(
-            "scatter_set", f"probe build_scatter: {flat} x [12800] := 7",
-            lambda: vo.scatter_set(tab_w, idx, 7),
-            lambda: vo.scatter_set_plain(tab_w, idx, 7),
-            lambda: tab_w.index_fill_(0, i64["idx"], 7), PROBE_IDS * 8,
-            compare=lambda: (vo.scatter_set(tab.clone(), idx, 7),
-                             vo.scatter_set_plain(tab.clone(), idx, 7))),
-        hold_exact(
-            "scatter_set", f"path vis_mark: uint8 [{B}, {n + TRASH}] x "
-            f"[{B}, {width}] := 0",
-            lambda: vo.scatter_set(vis_w, marks, 0),
-            lambda: vo.scatter_set_plain(vis_w, marks, 0),
-            lambda: vis_w.scatter_(1, i64["marks"], 0), B * width * 5,
-            compare=lambda: (vo.scatter_set(vis.clone(), marks, 0),
-                             vo.scatter_set_plain(vis.clone(), marks, 0)))]
-    return {"gather_elems": ge, "gather_rows": gr, "scatter_set": ss}
+    out = {"gather_elems": [], "gather_rows": gr, "scatter_set": []}
+    for case in bench_visited.visited_cases(dev):
+        t, ids, arg = case.table, case.ids, case.arg
+        if case.op == "gather":
+            name = "gather_elems"
+            kernel = (lambda t=t, ids=ids, arg=arg:
+                      vo.gather_elems(t, ids, arg))
+            plain = (lambda t=t, ids=ids, arg=arg:
+                     vo.gather_elems_plain(t, ids, arg))
+            compare = None
+        else:
+            name = "scatter_set"
+            kernel = (lambda t=t, ids=ids, arg=arg:
+                      vo.scatter_set(t, ids, arg))
+            plain = (lambda t=t, ids=ids, arg=arg:
+                     vo.scatter_set_plain(t, ids, arg))
+            compare = (lambda t=t, ids=ids, arg=arg: (
+                vo.scatter_set(t.clone(), ids, arg),
+                vo.scatter_set_plain(t.clone(), ids, arg)))
+        plan, blocks = vo.library_plan(case.op, t, ids, arg)
+        print(f"   {name:12s} {case.order}: {case.label}: {plan.path}, grid "
+              f"{list(plan.grid)}, {plan.threads} "
+              f"threads, {plan.smem_bytes} shared bytes, {blocks} blocks an "
+              f"SM", flush=True)
+        r = hold_exact(name, f"{case.order}: {case.label}", kernel, plain,
+                       bench_visited.library_call(case), case.nbytes,
+                       compare=compare, symbols=(name,))
+        r["plan"] = {"path": plan.path, "grid": list(plan.grid),
+                     "cluster": 1, "threads": plan.threads,
+                     "smem_bytes": plan.smem_bytes, "blocks_per_sm": blocks}
+        out[name].append(r)
+    return out
 
 
 def edge_rows(B, W, dtype, gen):
@@ -1353,7 +1328,10 @@ def run(dev: torch.device, tmp: str) -> int:
                     and c["mask"] == "random")
 
     def visited_entry(name, replaces):
-        path_case = visited_cases[name][-1]
+        path_case = visited_cases[name][-1] if name not in MAIN_VISITED \
+            else next(c for c in visited_cases[name]
+                      if c["shape"].startswith(MAIN_VISITED[name]))
+        plan = {"plan": path_case["plan"]} if "plan" in path_case else {}
         return {
             "name": name, "route": "cuda",
             "source": "nann_tpu_torch/csrc/visited_ops.cu",
@@ -1364,7 +1342,7 @@ def run(dev: torch.device, tmp: str) -> int:
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "library_device_ms",
                                          "shape")},
-            "card": card, "cases": visited_cases[name]}
+            **plan, "card": card, "cases": visited_cases[name]}
 
     def select_entry(name, replaces):
         main = next(c for c in select_cases[name]
