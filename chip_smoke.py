@@ -70,8 +70,23 @@ script exits non-zero:
              num_scoring must equal the kernel path's; recall@200 against the
              brute-force oracle, whose top-k runs through row_topk and must
              give the ids of the plain top-k
-  6 engine   the serving engine on the bundle (every bucket warmed), 64
-             requests from 4 threads, each answer equal to the direct search
+  6 engine   the serving engine on the bundle (every bucket of the ladder
+             1-128 warmed), 64 requests from 4 threads, each answer equal to
+             the direct search
+  6b front ends  on the same bundle: the engine calibrates its ladder into a
+             file (each bucket's qps and the serving bucket printed) and a
+             second engine reads it back ("cached"); 128 queries through the
+             batched search on the kernel and plain paths (overlap, scores
+             of common ids), then through an engine at serve_bucket=128, each
+             answer equal to the direct search; NannServer on a free port:
+             64 requests over http.client from 4 threads, then :reload of a
+             second bundle (weight seed 1), answers equal to its direct
+             search; a predict request and response through tfs_proto
+             around engine.submit, and NannGrpcServer where grpc imports;
+             ModelSelector over the list engine and a byte-map engine, each
+             answer equal to its own direct search; run_load_test for 5 s
+             at qps=-1 (its numbers with the card's name and power limit);
+             every kernel of the path launched in the phase
   7 int8     the same bundle loaded with dtype="int8": the 64 queries on the
              kernel and plain paths (overlap, scores of common ids), the
              launch counters (the int8 kernel and not the float one), wall
@@ -96,7 +111,8 @@ script exits non-zero:
              frontier_scorer_int8, gather_elems (also the lane gather),
              gather_rows, scatter_set, row_sort, row_topk; gather_elems and
              scatter_set with the plan of their entry's case (the byte-map
-             search's filtered hop in its sorted id order)
+             search's filtered hop in its sorted id order); each with its
+             launches in phase 6b (launches_front_ends)
   9 result   the last line: {"ok": true, "device": {...}}
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -107,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.client
 import json
 import os
 import shutil
@@ -138,7 +155,10 @@ from nann_tpu_torch.search import beam as search_beam
 from nann_tpu_torch.search.autotune import autotune_hop_caps
 from nann_tpu_torch.search import (SearchIndex, brute_force_topk,
                                    level_topn_default, make_searcher)
-from nann_tpu_torch.serving import Engine, EngineConfig
+from nann_tpu_torch.serving import (Engine, EngineConfig, Histogram,
+                                    LoadGenConfig, ModelSelector, NannServer,
+                                    run_load_test, tfs_proto)
+from nann_tpu_torch.serving.grpc_server import NannGrpcServer, make_client_call
 from nann_tpu_torch.utils import calc_pr
 from scripts import bench_visited
 
@@ -177,6 +197,9 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 0.05}   # x (1 + |ref|)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}   # H100 SXM
 PEAK_BYTES = 3.35e12
 MIN_OVERLAP = 0.98
+# phase 6b: the batch the largest bucket of the ladder gives the kernels,
+# the seed of its queries, the load test's seconds
+FRONT_BATCH, FRONT_SEED, LOAD_S = 128, 6, 5.0
 # the TPU probes' shapes (scripts/probe_kernel_ops.py:26-27, 169-172)
 PROBE_ITEMS, PROBE_IDS = 200_064, 12_800
 VISITED_OPS = (visited_ops.gather_elems, visited_ops.gather_rows,
@@ -857,6 +880,241 @@ def serve(mcfg, params, state, index, users_np, want_items):
     return serve_s, engine
 
 
+def front_end_ops():
+    """The kernel wrappers whose launches phase 6b counts."""
+    return (score_frontier,) + VISITED_OPS + SELECT_OPS
+
+
+def answers_equal(answers, items, scores, label) -> float:
+    """Each engine answer (ids, scores) against row i of a direct search:
+    ids equal, scores within the bfloat16 tolerance. Returns the largest
+    |d| / (1 + |ref|) of the scores."""
+    worst = 0.0
+    for i, (got_items, got_scores) in enumerate(answers):
+        keep = items[i] >= 0
+        if not np.array_equal(got_items, items[i][keep]):
+            raise AssertionError(f"{label}: answer {i} differs from the "
+                                 f"direct search")
+        ref = scores[i][keep]
+        worst = max(worst, float(np.max(
+            np.abs(got_scores - ref) / (1 + np.abs(ref)), initial=0.0)))
+    if worst > TOL[torch.bfloat16]:
+        raise AssertionError(f"{label}: scores differ by {worst}")
+    return worst
+
+
+def post_json(port, path, payload):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
+    """Phase 6b: the engine's calibrated ladder and its cache, the search at
+    B = FRONT_BATCH (kernel path against plain path, and through the engine),
+    the REST server and its reload, the wire codec and gRPC, the selector
+    over the list and byte-map engines, and the load generator. Returns the
+    kernels' launches in the phase, by their entries' names in the kernels
+    line."""
+    ltn = level_topn_default(SCFG)
+    L, d = MCFG.max_seq_length, MCFG.user_emb_dim
+    users = np.random.default_rng(FRONT_SEED).standard_normal(
+        (FRONT_BATCH, L, d)).astype(np.float32)
+    search_k = make_searcher(mcfg, SCFG)
+    for op in front_end_ops():
+        op.launches = 0
+
+    cal_path = os.path.join(tmp, "calibration.json")
+    t0 = time.perf_counter()
+    engine = Engine(mcfg, SCFG, params, state, index,
+                    EngineConfig(calibrate=True, calibration_file=cal_path))
+    cal_s = time.perf_counter() - t0
+    print(f"   calibration ({cal_s:.2f}s, warm-up included): ladder "
+          f"{list(engine.config.batch_buckets)}, median engine qps by "
+          f"bucket { {b: round(q, 1) for b, q in engine.bucket_qps.items()} }"
+          f", serving bucket {engine._serve_cap} "
+          f"({engine.calibration_source}); {card}")
+    if engine.calibration_source != "measured" or \
+            engine._serve_cap not in engine.config.batch_buckets:
+        raise AssertionError("the engine did not calibrate its ladder")
+    cached = Engine(mcfg, SCFG, params, state, index,
+                    EngineConfig(calibrate=True, calibration_file=cal_path,
+                                 warmup=False))
+    cached.shutdown()
+    print(f"   a second engine on the same file: {cached.calibration_source}"
+          f", serving bucket {cached._serve_cap}")
+    if cached.calibration_source != "cached" or \
+            cached._serve_cap != engine._serve_cap:
+        raise AssertionError("the calibration file was not read back")
+
+    # the search at B = FRONT_BATCH: kernel path against plain path
+    users_t = torch.from_numpy(users)
+    items_k, scores_k, _ = (x.cpu().numpy() for x in search_k(
+        params, state, index, users_t, ltn))
+    items_p, scores_p, _ = (x.cpu().numpy() for x in make_searcher(
+        mcfg, SCFG, scorer_impl="plain")(params, state, index, users_t, ltn))
+    overlap = mean_overlap(items_k, items_p)
+    score_rel = common_score_rel(items_k, scores_k, items_p, scores_p)
+    print(f"   batched search at B={FRONT_BATCH}: top-{items_k.shape[1]} "
+          f"overlap kernel vs plain {overlap:.4f} (need >= {MIN_OVERLAP}); "
+          f"scores of common ids max|d|/(1+|ref|)={score_rel:.3e} "
+          f"(tol {TOL[torch.bfloat16]})")
+    if overlap < MIN_OVERLAP or score_rel > TOL[torch.bfloat16]:
+        raise AssertionError(f"B={FRONT_BATCH}: overlap {overlap}, score "
+                             f"error {score_rel}")
+    big = Engine(mcfg, SCFG, params, state, index,
+                 EngineConfig(serve_bucket=FRONT_BATCH, warmup=False))
+    futures = [big.submit(u) for u in users]
+    answers = [f.result(timeout=300) for f in futures]
+    rel = answers_equal(answers, items_k, scores_k, "engine at "
+                        f"serve_bucket={FRONT_BATCH}")
+    print(f"   engine at serve_bucket={FRONT_BATCH}: {FRONT_BATCH} requests "
+          f"in batches of up to "
+          f"{big.metrics.batch_size.snapshot()['max']:.0f}, each equal to the "
+          f"direct search (scores max|d|/(1+|ref|)={rel:.1e})")
+
+    # REST: NannServer on a free port, 64 requests from 4 threads, reload
+    server = NannServer(big, port=0)
+    server.start()
+    try:
+        n_rest = min(64, FRONT_BATCH)
+        replies = [None] * n_rest
+
+        def client(c):
+            for i in range(c, n_rest, 4):
+                replies[i] = post_json(server.port, "/v1/models/nann:predict",
+                                       {"inputs": {"comm_seq": users[i].reshape(
+                                           1, -1).tolist()}})
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        rest_s = time.perf_counter() - t0
+        if any(status != 200 for status, _ in replies):
+            raise AssertionError(f"REST replies {[s for s, _ in replies]}")
+        rel = answers_equal(
+            [(np.asarray(r["outputs"]["top_k"][0]),
+              np.asarray(r["outputs"]["scores"][0], np.float32))
+             for _, r in replies], items_k, scores_k, "REST")
+        print(f"   REST: {n_rest} requests over http.client from 4 threads in "
+              f"{rest_s * 1e3:.1f} ms, each equal to the direct search "
+              f"(scores max|d|/(1+|ref|)={rel:.1e})")
+
+        bundle2 = os.path.join(tmp, "bundle_seed1")
+        params2, state2 = init_scorer(MCFG, torch.Generator().manual_seed(1),
+                                      device=dev)
+        export_model(bundle2, params2, state2, MCFG, SCFG,
+                     item_ids=np.arange(1, NUM_ITEMS + 1, dtype=np.int64),
+                     item_embs=item_embs,
+                     index_dir=os.path.join(tmp, "index"))
+        t0 = time.perf_counter()
+        status, reply = post_json(server.port, "/v1/models/nann:reload",
+                                  {"export_dir": bundle2})
+        reload_s = time.perf_counter() - t0
+        if status != 200:
+            raise AssertionError(f"reload: {status} {reply}")
+        p2, s2, _m2, index2 = load_serving_bundle(bundle2, device=dev)
+        items_2, scores_2, _ = (x.cpu().numpy() for x in search_k(
+            p2, s2, index2, users_t[:16], ltn))
+        replies = [post_json(server.port, "/v1/models/nann:predict",
+                             {"inputs": {"comm_seq": users[i].tolist()}})
+                   for i in range(16)]
+        rel = answers_equal(
+            [(np.asarray(r["outputs"]["top_k"][0]),
+              np.asarray(r["outputs"]["scores"][0], np.float32))
+             for _, r in replies], items_2, scores_2, "after :reload")
+        print(f"   :reload of a bundle of weight seed 1: {reload_s:.2f}s; 16 "
+              f"answers equal to the new model's direct search (overlap with "
+              f"the old model's {mean_overlap(items_2, items_k[:16]):.4f})")
+        del p2, s2, index2
+    finally:
+        server.stop()
+        big.shutdown()
+
+    # the wire codec around engine.submit, then gRPC where it imports
+    comm = users[:1].reshape(1, L * d).astype(np.float16)
+    req = tfs_proto.encode_predict_request({"comm_seq": comm,
+                                            "level_topn": ltn}, "nann")
+    _spec, inputs = tfs_proto.decode_predict_request(req)
+    user16 = inputs["comm_seq"].astype(np.float32).reshape(L, d)
+    items, scores = engine.submit(user16, inputs["level_topn"]).result(
+        timeout=300)
+    _spec, outputs = tfs_proto.decode_predict_response(
+        tfs_proto.encode_predict_response(
+            {"top_k": items[None].astype(np.int32), "scores": scores[None]}))
+    want16 = [x.cpu().numpy() for x in search_k(
+        params, state, index, torch.from_numpy(user16[None]), ltn)]
+    answers_equal([(outputs["top_k"][0], outputs["scores"][0])], want16[0],
+                  want16[1], "tfs_proto round trip")
+    print(f"   tfs_proto: a predict request ({len(req)} bytes, fp16 comm_seq "
+          f"[1, {L * d}]) and its response round-trip around engine.submit, "
+          f"equal to the direct search")
+    try:
+        import grpc
+    except ImportError:
+        print("   gRPC: the grpc package does not import here; the gRPC "
+              "transport was not driven")
+    else:
+        grpc_server = NannGrpcServer(engine, port=0)
+        grpc_server.start()
+        try:
+            with grpc.insecure_channel(f"127.0.0.1:{grpc_server.port}") as ch:
+                out = make_client_call(ch)({"comm_seq": users[:8].reshape(
+                    8, L * d)}, timeout=300)
+        finally:
+            grpc_server.stop()
+        answers_equal([(row[row > 0], sc[row > 0]) for row, sc in
+                       zip(out["top_k"], out["scores"])], items_k, scores_k,
+                      "gRPC")
+        print("   gRPC: 8 rows in one Predict, each equal to the direct "
+              "search")
+
+    # the selector over the list engine and a byte-map engine
+    bm = dataclasses.replace(SCFG, vis_impl="bytemap")
+    bytemap = Engine(mcfg, bm, params, state, index,
+                     EngineConfig(warmup=False))
+    items_b, scores_b, _ = (x.cpu().numpy() for x in make_searcher(mcfg, bm)(
+        params, state, index, users_t[:32], ltn))
+    selector = ModelSelector({"list": engine, "bytemap": bytemap})
+    try:
+        for name, (want_i, want_s) in (("list", (items_k, scores_k)),
+                                       ("bytemap", (items_b, scores_b))):
+            selector.select(name)
+            futures = [selector.submit(u) for u in users[:32]]
+            answers_equal([f.result(timeout=300) for f in futures], want_i,
+                          want_s, f"selector, {name}")
+    finally:
+        bytemap.shutdown()
+    print("   ModelSelector: 32 requests to each of the list and byte-map "
+          "engines, each equal to its own direct search")
+
+    # the load generator on the calibrated engine, its histograms emptied of
+    # calibration's and the earlier steps' samples (as bench.py drops them)
+    for name in ("latency_us", "batch_size", "device_us"):
+        setattr(engine.metrics, name, Histogram())
+    res = run_load_test(engine, LoadGenConfig(duration_s=LOAD_S, qps=-1),
+                        verbose=False)
+    engine.shutdown()
+    print(f"   load test ({LOAD_S:.0f}s, qps=-1, 4 producers, serving bucket "
+          f"{engine._serve_cap}; {card}): {json.dumps(res)}")
+    if res["failures"] or res["total"] == 0:
+        raise AssertionError(f"load test: {res}")
+    launches = {"frontier_scorer" if op is score_frontier else op.__name__:
+                op.launches for op in front_end_ops()}
+    print(f"   launches in this phase: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the front ends' path was not "
+                             f"launched: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1067,6 +1325,10 @@ def run(dev: torch.device, tmp: str) -> int:
             print("  ", line)
         if engine_launches == 0:
             raise AssertionError("the engine launched no kernel")
+
+    with phase("6b front ends"):
+        front_launches = front_ends(mcfg, params, state, index, tmp,
+                                          item_embs, card, dev)
 
     with phase("7 int8"):
         params8, state8, mcfg8, index8 = load_serving_bundle(
@@ -1372,6 +1634,8 @@ def run(dev: torch.device, tmp: str) -> int:
         visited_entry("scatter_set", f"{probe}:198"),
         select_entry("row_sort", f"{probe}:212"),
         select_entry("row_topk", f"{probe}:222")]}
+    for k in kernels["kernels"]:
+        k["launches_front_ends"] = front_launches.get(k["name"], 0)
     with phase("8 kernels"):
         print(json.dumps(kernels), flush=True)
     print(f"   total {time.perf_counter() - t_start:.1f}s", flush=True)

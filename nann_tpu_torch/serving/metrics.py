@@ -1,11 +1,11 @@
-"""Serving metrics: event meters and latency / batch-size histograms
+"""Serving metrics: event meters, histograms and a periodic reporter
 (nann_tpu/serving/metrics.py)."""
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -54,7 +54,7 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """The engine's metric set."""
+    """The engine's metric set, and a reporter that writes it periodically."""
 
     def __init__(self, name: str = "model"):
         self.name = name
@@ -63,16 +63,52 @@ class MetricsRegistry:
         self.rejected = Meter()
         self.latency_us = Histogram()
         self.batch_size = Histogram()
+        # a batch's time on the device: on CUDA the stream's time from its
+        # first launch to its last (CUDA events, idle between launches
+        # included); on the CPU the host's clock around the search
+        self.device_us = Histogram()
+        # requests whose hop expansion reached a per-hop frontier cap
+        # (SearchConfig.frontier_cap_per_hop): nonzero means the tuned caps
+        # truncate live traffic
+        self.cap_saturated = Meter()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
 
     def report_lines(self) -> List[str]:
         lat = self.latency_us.snapshot()
         bs = self.batch_size.snapshot()
+        dev = self.device_us.snapshot()
         return [
+            f"[{self.name}] device_us/batch: p50={dev['p50']:.0f} "
+            f"p99={dev['p99']:.0f}",
             f"[{self.name}] throughput: {self.throughput.mean_rate:.1f}/s "
             f"(total {self.throughput.count})",
             f"[{self.name}] latency_us: p50={lat['p50']:.0f} "
             f"p95={lat['p95']:.0f} p99={lat['p99']:.0f} max={lat['max']:.0f}",
             f"[{self.name}] batch_size: mean={bs['mean']:.1f} p99={bs['p99']:.0f}",
             f"[{self.name}] failures: {self.failures.count} "
-            f"rejected: {self.rejected.count}",
+            f"rejected: {self.rejected.count} "
+            f"cap_saturated: {self.cap_saturated.count}",
         ]
+
+    def start_reporter(self, interval_s: float = 3.0,
+                       sink: Callable[[str], None] = print) -> None:
+        """Write report_lines() to `sink` every `interval_s` seconds, from a
+        thread of its own, until stop_reporter()."""
+        self.stop_reporter()
+        stop = self._stop = threading.Event()
+
+        def loop():
+            while not stop.wait(interval_s):
+                for line in self.report_lines():
+                    sink(line)
+
+        self._thread = threading.Thread(target=loop, name="nann-metrics",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop_reporter(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=1)
+            self._thread = None

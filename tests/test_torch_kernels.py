@@ -15,6 +15,8 @@ Tolerances: float32 2e-4 x (1 + |ref|) (another summation order), bfloat16
 those of tests/test_scorer_kernel.py.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -805,3 +807,89 @@ def test_list_search_kernel_selects_equal_plain_selects(cuda, tmp_path,
     want = make_searcher(mcfg, scfg)(*args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------- serving engine
+
+
+def test_kernel_inits_run_twice_harmlessly(cuda):
+    """Two engines' threads can both miss a once-per-device init's cache
+    (functools.lru_cache runs the body in each): every init run again, from
+    two threads at once, leaves the kernels launching and agreeing with
+    their plain versions."""
+    import threading
+    index = torch.cuda.current_device()
+    inits = (fs._init, so._init, vo._init)
+    for init in inits:
+        init(index)
+    errors = []
+
+    def run_all():
+        try:
+            for init in inits:
+                init.__wrapped__(index)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run_all) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    args = _inputs(SERVING, torch.bfloat16, cuda, B=2, F=300)
+    got, want = fs.score_frontier(*args), fs.frontier_scorer_plain(*args)
+    valid = args[-1]
+    assert ((got - want)[valid].abs() / (1 + want[valid].abs())).max() <= \
+        TOL[torch.bfloat16]
+    keys = torch.randn(4, 9000, device=cuda)
+    _assert_bits_equal(so.row_sort(keys), so.row_sort_plain(keys))
+    table, ids, arg = _element_inputs("gather", torch.int32,
+                                      *_PATH_CASES[-1][1:4], 0)
+    _assert_bits_equal(*_run_element("gather", table.to(cuda), ids.to(cuda),
+                                      arg))
+
+
+def test_engine_on_the_card(cuda, tmp_path):
+    """The serving engine on CUDA: pinned uploads and copies, CUDA-event
+    device times, one wait per drain; answers equal the direct search before
+    and after a model swap, and a model on another device is refused."""
+    from nann_tpu_torch.serving import Engine, EngineConfig
+    from nann_tpu_torch.serving.pool import _place
+    mcfg, scfg = NARROW, SearchConfig(frontier_cap=512)
+    rng = np.random.default_rng(0)
+    embs = rng.standard_normal((3000, mcfg.item_emb_dim)).astype(np.float32)
+    build_and_save_index(embs, 2, 16, str(tmp_path), ef_construction=40)
+    index = SearchIndex.from_artifacts(load_index(str(tmp_path), 2), embs,
+                                       np.arange(3000), device="cpu")
+    models = [_place(*init_scorer(mcfg, torch.Generator().manual_seed(s),
+                                  "cpu"), index, cuda) for s in (1, 2)]
+    users = rng.standard_normal(
+        (24, mcfg.max_seq_length, mcfg.user_emb_dim)).astype(np.float32)
+    ltn = level_topn_default(scfg)
+    search = make_searcher(mcfg, scfg)
+    eng = Engine(mcfg, scfg, *models[0],
+                 EngineConfig(batch_buckets=(1, 4, 16), wait_ms=2.0))
+    try:
+        for model in models:
+            eng.swap_model(*model)
+            items, scores, _ = (x.cpu().numpy() for x in search(
+                *model, torch.from_numpy(users), ltn))
+            futures = [eng.submit(u) for u in users]
+            for i, f in enumerate(futures):
+                got_items, got_scores = f.result(timeout=60)
+                keep = items[i] >= 0
+                np.testing.assert_array_equal(got_items, items[i][keep])
+                np.testing.assert_array_equal(got_scores, scores[i][keep])
+        with pytest.raises(ValueError, match="serves on cuda"):
+            eng.swap_model(*_place(*models[0], "cpu"))
+        deadline = time.perf_counter() + 60
+        while (eng.metrics.device_us.snapshot()["count"]
+               != eng.metrics.batch_size.snapshot()["count"]
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        dev_us = eng.metrics.device_us.snapshot()
+        assert dev_us["count"] == eng.metrics.batch_size.snapshot()["count"]
+        assert dev_us["p50"] > 0 and eng.metrics.failures.count == 0
+    finally:
+        eng.shutdown()
