@@ -85,8 +85,12 @@ script exits non-zero:
              around engine.submit, and NannGrpcServer where grpc imports;
              ModelSelector over the list engine and a byte-map engine, each
              answer equal to its own direct search; run_load_test for 5 s
-             at qps=-1 (its numbers with the card's name and power limit);
-             every kernel of the path launched in the phase
+             at qps=-1 (its numbers with the card's name and power limit).
+             The direct searches run first; launches are counted in the
+             front ends' steps only (counts set to 0 before each step, read
+             after it): every kernel of the path launched there, the scorer
+             in every step, scatter_set in the selector's byte-map step and
+             not in its list step
   7 int8     the same bundle loaded with dtype="int8": the 64 queries on the
              kernel and plain paths (overlap, scores of common ids), the
              launch counters (the int8 kernel and not the float one), wall
@@ -112,7 +116,7 @@ script exits non-zero:
              gather_rows, scatter_set, row_sort, row_topk; gather_elems and
              scatter_set with the plan of their entry's case (the byte-map
              search's filtered hop in its sorted id order); each with its
-             launches in phase 6b (launches_front_ends)
+             launches in phase 6b's front-end steps (launches_front_ends)
   9 result   the last line: {"ok": true, "device": {...}}
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -852,9 +856,10 @@ def print_breakdown(breakdown, search_ms) -> None:
           f"({busy / search_ms:.1%})")
 
 
-def serve(mcfg, params, state, index, users_np, want_items):
+def serve(mcfg, params, state, index, users_np, want_items, want_scores,
+          label):
     """The engine on `index` (every bucket warmed): NUM_QUERIES requests from
-    4 client threads, each answer equal to the direct search's items.
+    4 client threads, each answer equal to the direct search's.
     Returns (seconds to answer all, the engine, shut down)."""
     engine = Engine(mcfg, SCFG, params, state, index, EngineConfig())
     futures = [None] * NUM_QUERIES
@@ -872,17 +877,40 @@ def serve(mcfg, params, state, index, users_np, want_items):
     answers = [f.result(timeout=300) for f in futures]
     serve_s = time.perf_counter() - t0
     engine.shutdown()
-    for i, (got_items, _got_scores) in enumerate(answers):
-        want = want_items[i][want_items[i] >= 0]
-        if not np.array_equal(got_items, want):
-            raise AssertionError(f"engine answer {i} differs from the "
-                                 f"direct search")
+    answers_equal(answers, want_items, want_scores, label)
     return serve_s, engine
 
 
 def front_end_ops():
     """The kernel wrappers whose launches phase 6b counts."""
     return (score_frontier,) + VISITED_OPS + SELECT_OPS
+
+
+def entry_name(op) -> str:
+    return "frontier_scorer" if op is score_frontier else op.__name__
+
+
+class FrontEndLaunches:
+    """The kernels' launches in phase 6b's front-end steps only: each step
+    sets every count to 0 just before it and reads the counts just after,
+    so the direct searches the answers are held against count nowhere."""
+
+    def __init__(self):
+        self.total = {entry_name(op): 0 for op in front_end_ops()}
+        self.steps = {}
+
+    @contextlib.contextmanager
+    def step(self, label):
+        for op in front_end_ops():
+            op.launches = 0
+        yield
+        got = {entry_name(op): op.launches for op in front_end_ops()}
+        self.steps[label] = got
+        for name, n in got.items():
+            self.total[name] += n
+        if not got["frontier_scorer"]:
+            raise AssertionError(f"{label}: the scorer kernel was not "
+                                 f"launched: {got}")
 
 
 def answers_equal(answers, items, scores, label) -> float:
@@ -918,21 +946,64 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
     """Phase 6b: the engine's calibrated ladder and its cache, the search at
     B = FRONT_BATCH (kernel path against plain path, and through the engine),
     the REST server and its reload, the wire codec and gRPC, the selector
-    over the list and byte-map engines, and the load generator. Returns the
-    kernels' launches in the phase, by their entries' names in the kernels
+    over the list and byte-map engines, and the load generator. The direct
+    searches come first; the front ends' steps after them. Returns the
+    kernels' launches in those steps, by their entries' names in the kernels
     line."""
     ltn = level_topn_default(SCFG)
     L, d = MCFG.max_seq_length, MCFG.user_emb_dim
     users = np.random.default_rng(FRONT_SEED).standard_normal(
         (FRONT_BATCH, L, d)).astype(np.float32)
+    users_t = torch.from_numpy(users)
+    bm = dataclasses.replace(SCFG, vis_impl="bytemap")
     search_k = make_searcher(mcfg, SCFG)
-    for op in front_end_ops():
-        op.launches = 0
 
+    # the direct searches every answer below is held against
+    # the search at B = FRONT_BATCH: kernel path against plain path
+    items_k, scores_k, _ = (x.cpu().numpy() for x in search_k(
+        params, state, index, users_t, ltn))
+    items_p, scores_p, _ = (x.cpu().numpy() for x in make_searcher(
+        mcfg, SCFG, scorer_impl="plain")(params, state, index, users_t, ltn))
+    overlap = mean_overlap(items_k, items_p)
+    score_rel = common_score_rel(items_k, scores_k, items_p, scores_p)
+    print(f"   batched search at B={FRONT_BATCH}: top-{items_k.shape[1]} "
+          f"overlap kernel vs plain {overlap:.4f} (need >= {MIN_OVERLAP}); "
+          f"scores of common ids max|d|/(1+|ref|)={score_rel:.3e} "
+          f"(tol {TOL[torch.bfloat16]})")
+    if overlap < MIN_OVERLAP or score_rel > TOL[torch.bfloat16]:
+        raise AssertionError(f"B={FRONT_BATCH}: overlap {overlap}, score "
+                             f"error {score_rel}")
+    # a second bundle (weight seed 1) for :reload, and its direct search
+    bundle2 = os.path.join(tmp, "bundle_seed1")
+    params2, state2 = init_scorer(MCFG, torch.Generator().manual_seed(1),
+                                  device=dev)
+    export_model(bundle2, params2, state2, MCFG, SCFG,
+                 item_ids=np.arange(1, NUM_ITEMS + 1, dtype=np.int64),
+                 item_embs=item_embs, index_dir=os.path.join(tmp, "index"))
+    p2, s2, _m2, index2 = load_serving_bundle(bundle2, device=dev)
+    items_2, scores_2, _ = (x.cpu().numpy() for x in search_k(
+        p2, s2, index2, users_t[:16], ltn))
+    del p2, s2, index2
+    # the wire codec's request: its fp16 comm_seq as the engine receives it
+    comm = users[:1].reshape(1, L * d).astype(np.float16)
+    req = tfs_proto.encode_predict_request({"comm_seq": comm,
+                                            "level_topn": ltn}, "nann")
+    _spec, inputs = tfs_proto.decode_predict_request(req)
+    user16 = inputs["comm_seq"].astype(np.float32).reshape(L, d)
+    items_16, scores_16, _ = (x.cpu().numpy() for x in search_k(
+        params, state, index, torch.from_numpy(user16[None]), ltn))
+    # the byte-map engine's direct search
+    items_b, scores_b, _ = (x.cpu().numpy() for x in make_searcher(mcfg, bm)(
+        params, state, index, users_t[:32], ltn))
+    torch.cuda.synchronize()
+
+    counts = FrontEndLaunches()
     cal_path = os.path.join(tmp, "calibration.json")
     t0 = time.perf_counter()
-    engine = Engine(mcfg, SCFG, params, state, index,
-                    EngineConfig(calibrate=True, calibration_file=cal_path))
+    with counts.step("calibration"):
+        engine = Engine(mcfg, SCFG, params, state, index,
+                        EngineConfig(calibrate=True,
+                                     calibration_file=cal_path))
     cal_s = time.perf_counter() - t0
     print(f"   calibration ({cal_s:.2f}s, warm-up included): ladder "
           f"{list(engine.config.batch_buckets)}, median engine qps by "
@@ -952,25 +1023,11 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
             cached._serve_cap != engine._serve_cap:
         raise AssertionError("the calibration file was not read back")
 
-    # the search at B = FRONT_BATCH: kernel path against plain path
-    users_t = torch.from_numpy(users)
-    items_k, scores_k, _ = (x.cpu().numpy() for x in search_k(
-        params, state, index, users_t, ltn))
-    items_p, scores_p, _ = (x.cpu().numpy() for x in make_searcher(
-        mcfg, SCFG, scorer_impl="plain")(params, state, index, users_t, ltn))
-    overlap = mean_overlap(items_k, items_p)
-    score_rel = common_score_rel(items_k, scores_k, items_p, scores_p)
-    print(f"   batched search at B={FRONT_BATCH}: top-{items_k.shape[1]} "
-          f"overlap kernel vs plain {overlap:.4f} (need >= {MIN_OVERLAP}); "
-          f"scores of common ids max|d|/(1+|ref|)={score_rel:.3e} "
-          f"(tol {TOL[torch.bfloat16]})")
-    if overlap < MIN_OVERLAP or score_rel > TOL[torch.bfloat16]:
-        raise AssertionError(f"B={FRONT_BATCH}: overlap {overlap}, score "
-                             f"error {score_rel}")
     big = Engine(mcfg, SCFG, params, state, index,
                  EngineConfig(serve_bucket=FRONT_BATCH, warmup=False))
-    futures = [big.submit(u) for u in users]
-    answers = [f.result(timeout=300) for f in futures]
+    with counts.step(f"engine, serve_bucket={FRONT_BATCH}"):
+        futures = [big.submit(u) for u in users]
+        answers = [f.result(timeout=300) for f in futures]
     rel = answers_equal(answers, items_k, scores_k, "engine at "
                         f"serve_bucket={FRONT_BATCH}")
     print(f"   engine at serve_bucket={FRONT_BATCH}: {FRONT_BATCH} requests "
@@ -991,11 +1048,13 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
                                        {"inputs": {"comm_seq": users[i].reshape(
                                            1, -1).tolist()}})
         t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(c,)) for c in range(4)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join()
+        with counts.step("REST"):
+            clients = [threading.Thread(target=client, args=(c,))
+                       for c in range(4)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
         rest_s = time.perf_counter() - t0
         if any(status != 200 for status, _ in replies):
             raise AssertionError(f"REST replies {[s for s, _ in replies]}")
@@ -1007,25 +1066,16 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
               f"{rest_s * 1e3:.1f} ms, each equal to the direct search "
               f"(scores max|d|/(1+|ref|)={rel:.1e})")
 
-        bundle2 = os.path.join(tmp, "bundle_seed1")
-        params2, state2 = init_scorer(MCFG, torch.Generator().manual_seed(1),
-                                      device=dev)
-        export_model(bundle2, params2, state2, MCFG, SCFG,
-                     item_ids=np.arange(1, NUM_ITEMS + 1, dtype=np.int64),
-                     item_embs=item_embs,
-                     index_dir=os.path.join(tmp, "index"))
         t0 = time.perf_counter()
-        status, reply = post_json(server.port, "/v1/models/nann:reload",
-                                  {"export_dir": bundle2})
-        reload_s = time.perf_counter() - t0
-        if status != 200:
-            raise AssertionError(f"reload: {status} {reply}")
-        p2, s2, _m2, index2 = load_serving_bundle(bundle2, device=dev)
-        items_2, scores_2, _ = (x.cpu().numpy() for x in search_k(
-            p2, s2, index2, users_t[:16], ltn))
-        replies = [post_json(server.port, "/v1/models/nann:predict",
-                             {"inputs": {"comm_seq": users[i].tolist()}})
-                   for i in range(16)]
+        with counts.step("REST after :reload"):
+            status, reply = post_json(server.port, "/v1/models/nann:reload",
+                                      {"export_dir": bundle2})
+            reload_s = time.perf_counter() - t0
+            if status != 200:
+                raise AssertionError(f"reload: {status} {reply}")
+            replies = [post_json(server.port, "/v1/models/nann:predict",
+                                 {"inputs": {"comm_seq": users[i].tolist()}})
+                       for i in range(16)]
         rel = answers_equal(
             [(np.asarray(r["outputs"]["top_k"][0]),
               np.asarray(r["outputs"]["scores"][0], np.float32))
@@ -1033,26 +1083,19 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
         print(f"   :reload of a bundle of weight seed 1: {reload_s:.2f}s; 16 "
               f"answers equal to the new model's direct search (overlap with "
               f"the old model's {mean_overlap(items_2, items_k[:16]):.4f})")
-        del p2, s2, index2
     finally:
         server.stop()
         big.shutdown()
 
     # the wire codec around engine.submit, then gRPC where it imports
-    comm = users[:1].reshape(1, L * d).astype(np.float16)
-    req = tfs_proto.encode_predict_request({"comm_seq": comm,
-                                            "level_topn": ltn}, "nann")
-    _spec, inputs = tfs_proto.decode_predict_request(req)
-    user16 = inputs["comm_seq"].astype(np.float32).reshape(L, d)
-    items, scores = engine.submit(user16, inputs["level_topn"]).result(
-        timeout=300)
+    with counts.step("tfs_proto"):
+        items, scores = engine.submit(user16, inputs["level_topn"]).result(
+            timeout=300)
     _spec, outputs = tfs_proto.decode_predict_response(
         tfs_proto.encode_predict_response(
             {"top_k": items[None].astype(np.int32), "scores": scores[None]}))
-    want16 = [x.cpu().numpy() for x in search_k(
-        params, state, index, torch.from_numpy(user16[None]), ltn)]
-    answers_equal([(outputs["top_k"][0], outputs["scores"][0])], want16[0],
-                  want16[1], "tfs_proto round trip")
+    answers_equal([(outputs["top_k"][0], outputs["scores"][0])], items_16,
+                  scores_16, "tfs_proto round trip")
     print(f"   tfs_proto: a predict request ({len(req)} bytes, fp16 comm_seq "
           f"[1, {L * d}]) and its response round-trip around engine.submit, "
           f"equal to the direct search")
@@ -1065,7 +1108,8 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
         grpc_server = NannGrpcServer(engine, port=0)
         grpc_server.start()
         try:
-            with grpc.insecure_channel(f"127.0.0.1:{grpc_server.port}") as ch:
+            with grpc.insecure_channel(f"127.0.0.1:{grpc_server.port}") as ch, \
+                    counts.step("gRPC"):
                 out = make_client_call(ch)({"comm_seq": users[:8].reshape(
                     8, L * d)}, timeout=300)
         finally:
@@ -1077,42 +1121,46 @@ def front_ends(mcfg, params, state, index, tmp, item_embs, card, dev):
               "search")
 
     # the selector over the list engine and a byte-map engine
-    bm = dataclasses.replace(SCFG, vis_impl="bytemap")
     bytemap = Engine(mcfg, bm, params, state, index,
                      EngineConfig(warmup=False))
-    items_b, scores_b, _ = (x.cpu().numpy() for x in make_searcher(mcfg, bm)(
-        params, state, index, users_t[:32], ltn))
     selector = ModelSelector({"list": engine, "bytemap": bytemap})
     try:
         for name, (want_i, want_s) in (("list", (items_k, scores_k)),
                                        ("bytemap", (items_b, scores_b))):
             selector.select(name)
-            futures = [selector.submit(u) for u in users[:32]]
-            answers_equal([f.result(timeout=300) for f in futures], want_i,
-                          want_s, f"selector, {name}")
+            with counts.step(f"selector, {name}"):
+                futures = [selector.submit(u) for u in users[:32]]
+                answers = [f.result(timeout=300) for f in futures]
+            answers_equal(answers, want_i, want_s, f"selector, {name}")
     finally:
         bytemap.shutdown()
-    print("   ModelSelector: 32 requests to each of the list and byte-map "
-          "engines, each equal to its own direct search")
+    scatter = {name: counts.steps[f"selector, {name}"]["scatter_set"]
+               for name in ("list", "bytemap")}
+    print(f"   ModelSelector: 32 requests to each of the list and byte-map "
+          f"engines, each equal to its own direct search; scatter_set "
+          f"launches {scatter}")
+    if not scatter["bytemap"] or scatter["list"]:
+        raise AssertionError(f"scatter_set behind the selector: {scatter}")
 
     # the load generator on the calibrated engine, its histograms emptied of
     # calibration's and the earlier steps' samples (as bench.py drops them)
     for name in ("latency_us", "batch_size", "device_us"):
         setattr(engine.metrics, name, Histogram())
-    res = run_load_test(engine, LoadGenConfig(duration_s=LOAD_S, qps=-1),
-                        verbose=False)
+    with counts.step("load test"):
+        res = run_load_test(engine, LoadGenConfig(duration_s=LOAD_S, qps=-1),
+                            verbose=False)
     engine.shutdown()
     print(f"   load test ({LOAD_S:.0f}s, qps=-1, 4 producers, serving bucket "
           f"{engine._serve_cap}; {card}): {json.dumps(res)}")
     if res["failures"] or res["total"] == 0:
         raise AssertionError(f"load test: {res}")
-    launches = {"frontier_scorer" if op is score_frontier else op.__name__:
-                op.launches for op in front_end_ops()}
-    print(f"   launches in this phase: {launches}")
-    if not all(launches.values()):
+    for label, got in counts.steps.items():
+        print(f"   launches in step {label}: {got}")
+    print(f"   launches in the front ends' steps: {counts.total}")
+    if not all(counts.total.values()):
         raise AssertionError(f"a kernel of the front ends' path was not "
-                             f"launched: {launches}")
-    return launches
+                             f"launched: {counts.total}")
+    return counts.total
 
 
 def main() -> int:
@@ -1316,7 +1364,8 @@ def run(dev: torch.device, tmp: str) -> int:
 
     with phase("6 engine"):
         score_frontier.launches = 0
-        serve_s, engine = serve(mcfg, params, state, index, users_np, items_k)
+        serve_s, engine = serve(mcfg, params, state, index, users_np, items_k,
+                                scores_k, "engine")
         engine_launches = score_frontier.launches
         print(f"   engine: {NUM_QUERIES} requests answered in "
               f"{serve_s * 1e3:.1f} ms, all equal to the direct search; "
@@ -1431,7 +1480,7 @@ def run(dev: torch.device, tmp: str) -> int:
 
         score_frontier.launches = score_frontier.launches_int8 = 0
         serve_s8, engine8 = serve(mcfg8, params8, state8, index8, users_np,
-                                  items_8)
+                                  items_8, scores_8, "int8 engine")
         engine_launches_8 = score_frontier.launches_int8
         if engine_launches_8 == 0 or score_frontier.launches != 0:
             raise AssertionError(

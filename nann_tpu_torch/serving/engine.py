@@ -89,9 +89,10 @@ class _Batch:
 
     requests: List[_Request]
     host: List[torch.Tensor]          # items, scores (, num_scoring)
-    start: Optional[torch.cuda.Event]  # CUDA: before the upload
-    end: Optional[torch.cuda.Event]    # CUDA: after the copies to the host
-    host_us: float = 0.0               # CPU: host clock around the search
+    start: Optional[torch.cuda.Event]   # CUDA: before the first launch
+    end: Optional[torch.cuda.Event]     # CUDA: after the last launch
+    copied: Optional[torch.cuda.Event]  # CUDA: after the copies to the host
+    host_us: float = 0.0                # CPU: host clock around the search
 
 
 class Engine:
@@ -462,21 +463,23 @@ class Engine:
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            copied = torch.cuda.Event()
+            users_dev = users.to(self._device, non_blocking=True)
             start.record()
-            out = self._search(params, state, index,
-                               users.to(self._device, non_blocking=True), ltn0)
+            out = self._search(params, state, index, users_dev, ltn0)
+            end.record()
             # pinned buffers of this batch's own: reused only after it is
             # resolved and the copies are done
             host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                     for o in out[:n_host]]
             for h, o in zip(host, out):
                 h.copy_(o, non_blocking=True)
-            end.record()
-            item = _Batch(batch, host, start, end)
+            copied.record()
+            item = _Batch(batch, host, start, end, copied)
         else:
             t0 = time.perf_counter()
             out = self._search(params, state, index, users, ltn0)
-            item = _Batch(batch, list(out[:n_host]), None, None,
+            item = _Batch(batch, list(out[:n_host]), None, None, None,
                           (time.perf_counter() - t0) * 1e6)
         with self._active_lock:
             self._active += len(batch)
@@ -509,8 +512,8 @@ class Engine:
                 except queue.Empty:
                     break
             try:
-                if pending[-1].end is not None:
-                    pending[-1].end.synchronize()
+                if pending[-1].copied is not None:
+                    pending[-1].copied.synchronize()
             except Exception as e:  # noqa: BLE001 - fail the drained batches
                 logger.exception("completion failed")
                 for b in pending:
