@@ -9,7 +9,7 @@ script exits non-zero:
   1 device   the card's name, and its name and power limit from nvidia-smi
   2 build    the CUDA kernel libraries (nvcc, one per source) and the native
              HNSW builder (g++), all side by side with the making of phase
-             7c's synthetic data (numpy)
+             7c's and phase 7f's synthetic data (numpy)
   3 kernel   the frontier-scorer kernel against its plain PyTorch version on
              the card: ids [16, 4096] (L = 50 and 7) and the main path's
              shapes [64, 4096], [64, 2880], [64, 90] (L = 50), ~10% invalid,
@@ -164,6 +164,27 @@ script exits non-zero:
              search's wall); Engine(mesh=...) on rank 0 with EngineFollower
              on rank 1 answering 8 requests equal to the single-card search.
              A rank's failure fails the phase
+  7f data-parallel training  a spawned world of 2 ranks on the one card
+             (gloo over CUDA tensors) at phase 7c's configuration: rank 0
+             first runs the single-card steps the world is held against;
+             then make_mesh(dp=2, mp=1) and 3 steps of
+             make_train_step(mesh=...) on each rank's 400 rows of the
+             global batch of 800 (BatchIterator(mesh=...)): the first
+             step's metrics, batch-norm state, gradients and parameters
+             against the single-card step, both ranks' parameters, AdamW
+             moments and
+             batch-norm state bit-equal before and after every step (64-bit
+             fingerprints compared), the same 160,000 negatives drawn on
+             both ranks, row_topk launched once a rank a step and no other
+             kernel; each step's wall and each rank's peak memory; one
+             step's all_reduce calls and bytes, and the gradients'
+             all-reduce bytes and ms (card synchronized around it). Then
+             make_mesh(dp=1, mp=2) with train_state_shardings on a
+             catalogue cut to 4,199,999 items and 49 categories (table
+             rows 4,200,000 and 50 split over 2; 200 users x 4 samples):
+             one step, the tables gathered whole against the single-card
+             step, the replicated leaves bit-equal on both ranks, gather_rows
+             launched inside the lookups. A rank's failure fails the phase
   8 kernels  one JSON line {"kernels": [...]}: frontier_scorer,
              frontier_scorer_int8, gather_elems (also the lane gather),
              gather_rows, scatter_set, row_sort, row_topk; gather_elems and
@@ -176,7 +197,9 @@ script exits non-zero:
              scorer, row_topk and gather_elems also in one tree search
              (launches_tree); each with its launches over phase 7e's three
              staged searches (launches_staged) and over rank 0's three
-             sharded searches (launches_sharded)
+             sharded searches (launches_sharded); and in phase 7f
+             (launches_dp_train): row_topk's a rank a dp step, gather_rows'
+             on rank 0 in the mp step
   9 result   the last line: {"ok": true, "device": {...}}
 
 It needs one CUDA card and exits non-zero without one. It imports nothing of
@@ -225,7 +248,10 @@ from nann_tpu_torch.kernels.frontier_scorer import (frontier_scorer_plain,
                                                     score_frontier,
                                                     scorer_plan)
 from nann_tpu_torch.models import init_scorer, item_tower, user_embed
-from nann_tpu_torch.parallel import make_mesh
+from nann_tpu_torch.data import BatchIterator
+from nann_tpu_torch.models.scorer import flatten
+from nann_tpu_torch.parallel import (collectives, make_mesh,
+                                     train_state_shardings, whole_leaf)
 from nann_tpu_torch.ops import fold_scorer, precompute_user
 from nann_tpu_torch.search import beam as search_beam
 from nann_tpu_torch.search.autotune import autotune_hop_caps
@@ -244,6 +270,8 @@ from nann_tpu_torch.serving.grpc_server import NannGrpcServer, make_client_call
 from nann_tpu_torch.train import loop as train_loop_mod
 from nann_tpu_torch.train import sampler as train_sampler
 from nann_tpu_torch.train.loop import checkpoint_steps, train_loop
+from nann_tpu_torch.train import objective as train_objective
+from nann_tpu_torch.train import step as train_step
 from nann_tpu_torch.train.step import step_generator
 from nann_tpu_torch.utils import calc_pr, torch_dtype, trace
 from scripts import bench_visited
@@ -312,6 +340,33 @@ SHARDS = 2
 SHARDED_REQUESTS = 8
 STAGED_REQUESTS = 16
 HOPS = sum(SCFG.num_scoring_per_level[:SCFG.hnsw_start_level])
+# phase 7f: data-parallel training on a world of DP_RANKS ranks on the one
+# card (gloo over CUDA tensors: NCCL takes one card a rank), phase 7c's
+# configuration: dp=2 for DP_STEPS steps from the first DP_STEPS global
+# batches of its data, then dp=1 x mp=2 for one step with the tables
+# row-sharded, on a catalogue whose table rows split over 2 (4,199,999
+# items and 49 categories: 4,200,000 and 50 rows; its data cut to 200 users
+# x 4 samples, one global batch). Tolerances of tests/test_torch_train.py:
+# metrics and batch-norm state rtol 1e-5 (loss_adv atol 1e-6), gradients
+# atol 1e-6 + rtol 1e-4, ZERO_GRAD_LEAVES (gradient 0 in exact arithmetic)
+# only held below 1e-6; parameters rtol 1e-6 + ADAM_ATOL x lr beyond the
+# difference AdamW's first update makes of the two gradients,
+# lr x |g / (|g| + eps) - g_ref / (|g_ref| + eps)|. That file leaves
+# elements whose gradient is below 1e-6 at 2 x lr; near |g| = 1e-6 the
+# update's eps / |g| turns a gradient difference of 1e-7 into steps 1e-6
+# apart. At 160,800 rows float32 sums in another order move a few
+# gradient elements of a leaf by up to 5e-6 (the single-card step on its
+# batch with the two halves swapped, the same sums, does so by as much):
+# the gradients get twice the largest difference that swap makes in each
+# leaf on top of that file's tolerance.
+DP_RANKS, DP_STEPS = 2, 3
+MP_MCFG = dataclasses.replace(TRAIN_MCFG, num_item=REF_ITEMS - 1, num_cate=49)
+MP_DATA = dict(TRAIN_DATA, num_item=REF_ITEMS - 1, num_cate=49,
+               num_users=200)
+ADAM_ATOL = 1e-5
+ZERO_GRAD_LEAVES = ("item_tower/0/dense/bias", "item_tower/1/dense/bias",
+                    "head/0/dense/bias", "head/1/dense/bias",
+                    "head/2/dense/bias", "att/k2/bias")
 # phase 6b: the batch the largest bucket of the ladder gives the kernels,
 # the seed of its queries, the load test's seconds
 FRONT_BATCH, FRONT_SEED, LOAD_S = 128, 6, 5.0
@@ -2020,6 +2075,429 @@ def sharded_phase(dev, bundle, users_np, want, single=None, timeout_s=300):
     return total
 
 
+def fingerprint(tensors) -> list:
+    """Two 64-bit position-weighted sums of each tensor's 32-bit words
+    (wrapping), a pair a tensor: equal bits give equal pairs, and a word
+    that differs changes both (its weights are odd)."""
+    out = []
+    for t in tensors:
+        words = t.detach().contiguous().view(-1).view(torch.int32)
+        pair = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for lo in range(0, words.numel(), 1 << 24):
+            w = words[lo:lo + (1 << 24)].to(torch.int64)
+            at = torch.arange(lo, lo + w.numel(), device=t.device,
+                              dtype=torch.int64)
+            pair[0] += (w * (at * 2654435761 * 2 + 1)).sum()
+            pair[1] += (w * ((at ^ 0x5BD1E995) * 40503 * 2 + 3)).sum()
+        out.append(pair.tolist())
+    return out
+
+
+def state_tensors(state):
+    """A TrainState's leaves, AdamW moments and batch-norm state, in one
+    order on every rank."""
+    moments = state.opt_state.state_dict()["state"]
+    return ([leaf for _, leaf in train_step.named_leaves(state.params)] +
+            [moments[i][m] for i in sorted(moments)
+             for m in ("exp_avg", "exp_avg_sq")] +
+            [t for _, t in train_step.named_leaves(state.bn_state)])
+
+
+def same_on_every_rank(tensors, group=None) -> bool:
+    """Whether the tensors' fingerprints agree on every rank of `group`."""
+    mine = fingerprint(tensors)
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, mine, group=group)
+    return all(f == every[0] for f in every)
+
+
+def step_against(ref, metrics, bn_state, params, grads, noise=None
+                 ) -> dict:
+    """A first step's metrics, batch-norm state, gradients and parameters
+    against the single-card step `ref` (its metrics, bn state, parameters
+    and gradients) at the tolerances above; returns the worst error /
+    tolerance of each (update_gap: the largest difference of the two
+    AdamW updates the gradients imply, over lr), the leaves whose
+    parameters are out (with the worst element's gradients and values),
+    and whether all are in. `noise` {leaf: the largest gradient difference
+    of the same step on reordered rows} widens the gradients' tolerance by
+    twice it."""
+    lr = TRAIN_TCFG.learning_rate
+    worst = {"metrics": 0.0, "loss_adv": 0.0, "bn": 0.0, "grads": 0.0,
+             "params": 0.0, "update_gap": 0.0}
+    out_leaves = []
+    ok = True
+    for k, v in metrics.items():
+        d = abs(float(v) - ref["metrics"][k])
+        if k == "loss_adv":
+            worst["loss_adv"] = max(worst["loss_adv"], d)
+            ok &= d <= 1e-6
+        else:
+            worst["metrics"] = max(worst["metrics"], d / max(
+                abs(ref["metrics"][k]), 1e-30))
+            ok &= d <= 1e-5 * abs(ref["metrics"][k])
+    got_bn = flatten(bn_state)
+    for k, want in flatten(ref["bn"]).items():
+        d = np.abs(got_bn[k] - want)
+        worst["bn"] = max(worst["bn"], float((d / (1e-8 + 1e-5 * np.abs(
+            want))).max()))
+        ok &= bool((d <= 1e-8 + 1e-5 * np.abs(want)).all())
+    grads_out = []
+    for k, want in ref["params"].items():
+        g_ref, g = ref["grads"][k], grads[k]
+        ratio = (g - g_ref).abs() / (1e-6 + 1e-4 * g_ref.abs() + 2 * (
+            noise[k] if noise else 0.0))
+        g_err = float(ratio.max())
+        worst["grads"] = max(worst["grads"], g_err)
+        zero = k in ZERO_GRAD_LEAVES
+        if g_err > 1 or (zero and float(g_ref.abs().max()) >= 1e-6):
+            at = int(torch.argmax(ratio))
+            grads_out.append({
+                "leaf": k, "ratio": g_err, "out": int((ratio > 1).sum()),
+                "of": int(g.numel()), "g_ref": float(g_ref.view(-1)[at]),
+                "g": float(g.view(-1)[at]),
+                "max_g_ref": float(g_ref.abs().max()),
+                "max_g": float(g.abs().max())})
+            ok = False
+        if zero:
+            continue
+        d = (params[k].detach() - want).abs()
+        implied = lr * (g / (g.abs() + 1e-8) -
+                        g_ref / (g_ref.abs() + 1e-8)).abs()
+        bound = ADAM_ATOL * lr + 1e-6 * want.abs() + implied
+        worst["params"] = max(worst["params"], float((d / bound).max()))
+        worst["update_gap"] = max(worst["update_gap"],
+                                  float(implied.max() / lr))
+        if bool((d > bound).any()):
+            at = int(torch.argmax(d / bound))
+            out_leaves.append({
+                "leaf": k, "out": int((d > bound).sum()),
+                "of": int(d.numel()), "ratio": float((d / bound).view(-1)[at]),
+                "g_ref": float(g_ref.view(-1)[at]), "g": float(g.view(-1)[at]),
+                "p_ref": float(want.view(-1)[at]),
+                "p": float(params[k].detach().view(-1)[at])})
+            ok = False
+    return {"worst": worst, "out": out_leaves, "grads_out": grads_out,
+            "ok": bool(ok)}
+
+
+def single_card_step(mcfg, train, feats, dev, swap=False):
+    """The single-card step from create_train_state's state on the first
+    global batch: its metrics, bn state, parameters and gradients. With
+    `swap`, the batch's two halves swapped, each row with its own
+    negatives: the same sums, in another order."""
+    state, schedule = train_step.create_train_state(mcfg, TRAIN_TCFG,
+                                                    device=dev)
+    step = train_step.make_train_step(mcfg, TRAIN_TCFG, schedule, feats,
+                                      device=dev)
+    batch = next(iter(BatchIterator(train, TRAIN_TCFG.batch_size,
+                                    seed=TRAIN_TCFG.seed)))
+    sample = train_objective.sample_negatives
+    if swap:
+        half = TRAIN_TCFG.batch_size // 2
+        batch = {k: np.concatenate([v[half:], v[:half]])
+                 for k, v in batch.items()}
+
+        def swapped(*a, **kw):
+            rows = sample(*a, **kw).reshape(2, half, -1)
+            return torch.cat([rows[1], rows[0]]).reshape(-1)
+
+        train_objective.sample_negatives = swapped
+    try:
+        new, metrics = step(state, batch, TRAIN_TCFG.seed + 1)
+    finally:
+        train_objective.sample_negatives = sample
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "bn": new.bn_state,
+            "params": {k: v.detach().clone()
+                       for k, v in train_step.named_leaves(new.params)},
+            "grads": {k: v.grad.clone()
+                      for k, v in train_step.named_leaves(new.params)}}
+
+
+class Collectives:
+    """Counts dist.all_reduce's calls and bytes while on, and times the
+    gradients' all-reduce with the card synchronized before and after it."""
+
+    def __init__(self, dev):
+        self.dev, self.calls, self.nbytes, self.grad_ms = dev, 0, 0, []
+        self.grad_bytes = 0
+
+    def __enter__(self):
+        self.plain, self.plain_grads = dist.all_reduce, \
+            collectives.all_reduce_grads
+
+        def all_reduce(t, *a, **kw):
+            self.calls += 1
+            self.nbytes += t.numel() * t.element_size()
+            return self.plain(t, *a, **kw)
+
+        def all_reduce_grads(leaves, group):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            self.grad_bytes = self.plain_grads(leaves, group)
+            sync(self.dev)
+            self.grad_ms.append((time.perf_counter() - t0) * 1e3)
+            return self.grad_bytes
+
+        dist.all_reduce = all_reduce
+        collectives.all_reduce_grads = all_reduce_grads
+        return self
+
+    def __exit__(self, *exc):
+        dist.all_reduce = self.plain
+        collectives.all_reduce_grads = self.plain_grads
+
+
+def dp_rank(rank, port, inputs, dev_type, out):
+    """One rank of phase 7f's world. Rank 0 first runs the single-card
+    steps (phase 7c's and the mp catalogue's) the world's steps are held
+    against. Then dp=2: DP_STEPS steps of make_train_step(mesh=...) on this
+    rank's blocks of BatchIterator(mesh=...), the ranks' state bit-equal
+    before and after each, the draws equal, the first step against the
+    single-card step, one step's collectives counted and its gradient
+    all-reduce timed; then dp=1 x mp=2 with train_state_shardings: one step,
+    the tables gathered whole against the single-card step's. Puts its
+    result, or its traceback, on `out`."""
+    result = {"rank": rank}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+            torch.device("cpu")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        z = np.load(inputs)
+        part = {p: {k.split("/", 1)[1]: z[k] for k in z.files
+                    if k.startswith(p + "/")}
+                for p in ("train", "feat", "mp_train", "mp_feat")}
+        if rank == 0:
+            t0 = time.perf_counter()
+            refs = {"dp": single_card_step(TRAIN_MCFG, part["train"],
+                                           part["feat"], dev),
+                    "mp": single_card_step(MP_MCFG, part["mp_train"],
+                                           part["mp_feat"], dev)}
+            swapped = single_card_step(TRAIN_MCFG, part["train"],
+                                       part["feat"], dev, swap=True)
+            noise = {k: float((g - refs["dp"]["grads"][k]).abs().max())
+                     for k, g in swapped["grads"].items()}
+            result["reorder_noise"] = max(noise.values())
+            del swapped
+            result["reference_s"] = time.perf_counter() - t0
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=DP_RANKS, rank=rank,
+                                timeout=datetime.timedelta(seconds=300))
+        result["backend"] = dist.get_backend()
+        mesh = make_mesh(dp=DP_RANKS, mp=1)
+
+        # the draws of each step, to hold them equal across the ranks
+        draws = []
+        sample = train_objective.sample_negatives
+
+        def recording(*a, **kw):
+            got = sample(*a, **kw)
+            draws.append(got.clone())
+            return got
+
+        train_objective.sample_negatives = recording
+        state, schedule = train_step.create_train_state(
+            TRAIN_MCFG, TRAIN_TCFG, device=dev)
+        step = train_step.make_train_step(TRAIN_MCFG, TRAIN_TCFG, schedule,
+                                          part["feat"], device=dev, mesh=mesh)
+        equal = [same_on_every_rank(state_tensors(state))]
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        walls, coll = [], None
+        batches = BatchIterator(part["train"], TRAIN_TCFG.batch_size,
+                                seed=TRAIN_TCFG.seed, mesh=mesh)
+        for i, batch in zip(range(DP_STEPS), batches):
+            result["rows"] = len(batch["gt_item_id"])
+            instrument = Collectives(dev) if i == DP_STEPS - 1 else \
+                contextlib.nullcontext()
+            with instrument:
+                sync(dev)
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, TRAIN_TCFG.seed + 1)
+                sync(dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            if i == DP_STEPS - 1:
+                coll = instrument
+            if i == 0 and rank == 0:
+                leaves = dict(train_step.named_leaves(state.params))
+                result["against_single"] = step_against(
+                    refs["dp"], metrics, state.bn_state, leaves,
+                    {k: v.grad for k, v in leaves.items()}, noise)
+            result.setdefault("metrics", []).append(
+                {m: float(v) for m, v in metrics.items()})
+            equal.append(same_on_every_rank(state_tensors(state)))
+        result["launches"] = path_launches_now()
+        result["walls"] = walls
+        result["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 \
+            if dev.type == "cuda" else 0.0
+        result["bit_equal"] = equal
+        same_draws = []
+        for d in draws:
+            mine = d.clone()
+            dist.broadcast(d, src=0)
+            same_draws.append(bool(torch.equal(mine, d)))
+        result["same_draws"] = same_draws
+        result["draw_sizes"] = [int(d.numel()) for d in draws]
+        result["collectives"] = {"calls": coll.calls, "bytes": coll.nbytes,
+                                 "grad_bytes": coll.grad_bytes,
+                                 "grad_ms": coll.grad_ms}
+        train_objective.sample_negatives = sample
+        del state, step
+
+        # dp=1 x mp=2: the tables row-sharded over the two ranks
+        m12 = make_mesh(dp=1, mp=DP_RANKS)
+        whole, schedule = train_step.create_train_state(
+            MP_MCFG, TRAIN_TCFG, device=dev)
+        sh = train_state_shardings(m12, whole)
+        local = train_step.shard_train_state(whole, sh, m12)
+        del whole
+        step = train_step.make_train_step(MP_MCFG, TRAIN_TCFG, schedule,
+                                          part["mp_feat"], device=dev,
+                                          mesh=m12, state_shardings=sh)
+        batch = next(iter(BatchIterator(part["mp_train"],
+                                        TRAIN_TCFG.batch_size,
+                                        seed=TRAIN_TCFG.seed, mesh=m12)))
+        sync(dev)
+        zero_launches()
+        with Collectives(dev) as mp_coll:
+            t0 = time.perf_counter()
+            local, metrics = step(local, batch, TRAIN_TCFG.seed + 1)
+            sync(dev)
+            mp_wall = (time.perf_counter() - t0) * 1e3
+        mp = {"launches": path_launches_now(), "wall": mp_wall,
+              "calls": mp_coll.calls, "bytes": mp_coll.nbytes,
+              "rows": int(local.params["ht_item"].shape[0]),
+              "cate_rows": int(local.params["ht_cate"].shape[0])}
+        params = dict(train_step.named_leaves(local.params))
+        tables = {k: whole_leaf(params[k], sh["params"][k], m12)
+                  for k in ("ht_item", "ht_cate")}
+        replicated = [t for k, t in train_step.named_leaves(local.params)
+                      if k not in tables]
+        mp["replicated_equal"] = same_on_every_rank(
+            replicated + [t for _, t in train_step.named_leaves(
+                local.bn_state)], m12.group("mp"))
+        grads = {k: whole_leaf(params[k].grad, sh["params"][k], m12)
+                 for k in tables}
+        if rank == 0:
+            mp["against_single"] = step_against(
+                refs["mp"], metrics, local.bn_state, {**params, **tables},
+                {**{k: v.grad for k, v in params.items()}, **grads})
+        result["mp"] = mp
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails
+        result["error"] = traceback.format_exc()
+    out.put(result)
+
+
+def dp_train_phase(dev, tmp, data, mp_data, timeout_s=400):
+    """Phase 7f: a spawned world of DP_RANKS ranks on the one card (gloo
+    over CUDA tensors). Returns {"row_topk": launches a rank a dp step,
+    "gather_rows": rank 0's launches in the mp step}, the kernels line's
+    launches_dp_train."""
+    train, _test, feats = data
+    mp_train, _, mp_feats = mp_data
+    rows = DP_STEPS * TRAIN_TCFG.batch_size
+    inputs = os.path.join(tmp, "dp_inputs.npz")
+    np.savez(inputs, **{f"train/{k}": v[:rows] for k, v in train.items()},
+             **{f"feat/{k}": v for k, v in feats.items()},
+             **{f"mp_train/{k}": v for k, v in mp_train.items()},
+             **{f"mp_feat/{k}": v for k, v in mp_feats.items()})
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=dp_rank, args=(r, port, inputs, dev.type,
+                                               out))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while len(results) < DP_RANKS:
+            left = deadline - time.perf_counter()
+            try:
+                got = out.get(timeout=max(left, 1))
+            except queue.Empty:
+                raise AssertionError(f"the dp world gave {len(results)} of "
+                                     f"{DP_RANKS} results in {timeout_s} s"
+                                     ) from None
+            results[got["rank"]] = got
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: res["error"] for r, res in results.items() if "error" in res}
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"a rank failed (exit codes "
+                             f"{[p.exitcode for p in procs]}): {errors}")
+    r0 = results[0]
+    print(f"   world of {DP_RANKS} ranks on {dev}: backend {r0['backend']}; "
+          f"rank 0's single-card reference steps {r0['reference_s']:.2f}s; "
+          f"{TRAIN_MCFG.num_item:,} items, global batch "
+          f"{TRAIN_TCFG.batch_size} ({r0['rows']} a rank), num_neg "
+          f"{TRAIN_TCFG.num_neg}; the single-card step's gradients on its "
+          f"batch with the halves swapped differ from its own by up to "
+          f"{r0['reorder_noise']:.3g}")
+    problems = []
+    for r in range(DP_RANKS):
+        res = results[r]
+        coll = res["collectives"]
+        print(f"   rank {r} dp=2: step walls ms "
+              f"{[round(t, 2) for t in res['walls']]} (card synchronized "
+              f"around each; step {DP_STEPS - 1} with its collectives "
+              f"counted); peak memory {res['peak_gib']:.2f} GiB "
+              f"(max_memory_allocated over the steps); state bit-equal on "
+              f"both ranks before and after each step {res['bit_equal']}; "
+              f"draws equal {res['same_draws']} of {res['draw_sizes']}; "
+              f"launches over {DP_STEPS} steps {res['launches']}")
+        print(f"   rank {r} dp=2 collectives of one step: "
+              f"{coll['calls']} all_reduce calls, {coll['bytes'] / 1e6:.2f} "
+              f"MB, of them the gradients {coll['grad_bytes'] / 1e6:.2f} MB "
+              f"in {coll['grad_ms'][0]:.2f} ms (card synchronized before "
+              f"and after)")
+        mp = res["mp"]
+        print(f"   rank {r} dp=1 x mp=2: {mp['rows']:,} ht_item rows and "
+              f"{mp['cate_rows']} ht_cate rows a rank; step wall "
+              f"{mp['wall']:.2f} ms; {mp['calls']} all_reduce calls, "
+              f"{mp['bytes'] / 1e6:.2f} MB; replicated leaves and bn state "
+              f"bit-equal {mp['replicated_equal']}; launches {mp['launches']}")
+        launched = res["launches"]
+        if not (all(res["bit_equal"]) and all(res["same_draws"])
+                and launched["row_topk"] == DP_STEPS
+                and not any(n for k, n in launched.items()
+                            if k != "row_topk")
+                and all(n == SAMPLER_K for n in res["draw_sizes"])
+                and mp["replicated_equal"]
+                and mp["launches"]["row_topk"] == 1
+                and mp["launches"]["gather_rows"] >= 4):
+            problems.append(f"rank {r}")
+    for m in r0["metrics"]:
+        print("   dp=2 step: " + ", ".join(f"{k} {m[k]:.6g}" for k in
+                                           ("loss", "loss_xe", "loss_adv",
+                                            "acc", "acc_origin")))
+    for case, got in (("dp=2 step 1", r0["against_single"]),
+                      ("dp=1 x mp=2 step", r0["mp"]["against_single"])):
+        print(f"   {case} against the single-card step: worst error / "
+              f"tolerance {got['worst']} (metrics relative; loss_adv "
+              f"absolute, tol 1e-6); parameters out {got['out']}; "
+              f"gradients out {got['grads_out']}: in {got['ok']}")
+        if not got["ok"]:
+            problems.append(case)
+    if problems or not all(np.isfinite(list(m.values())).all()
+                           for m in r0["metrics"]):
+        raise AssertionError(f"phase 7f failed: {problems}")
+    return {"row_topk": r0["launches"]["row_topk"] / DP_STEPS,
+            "gather_rows": r0["mp"]["launches"]["gather_rows"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2065,6 +2543,9 @@ def run(dev: torch.device, tmp: str) -> int:
         data = []
         builds["phase 7c's synthetic data (numpy)"] = lambda: data.append(
             synthetic_dataset(**TRAIN_DATA))
+        mp_data = []
+        builds["phase 7f's mp catalogue (numpy)"] = lambda: mp_data.append(
+            synthetic_dataset(**MP_DATA))
         threads = [threading.Thread(target=timed, args=item)
                    for item in builds.items()]
         for t in threads:
@@ -2524,6 +3005,10 @@ def run(dev: torch.device, tmp: str) -> int:
             "byte-map": (items_b, scores_b, ns_b.cpu().numpy()),
             "int8": (items_8, scores_8, ns_8.cpu().numpy())}, single)
 
+    with phase("7f data-parallel training"):
+        torch.cuda.empty_cache()
+        dp_launches = dp_train_phase(dev, tmp, data[0], mp_data[0])
+
     def entry(name, replaces, launches, per_search, main, all_cases):
         return {
             "name": name, "route": "cuda",
@@ -2601,6 +3086,7 @@ def run(dev: torch.device, tmp: str) -> int:
             k["launches_tree"] = cli_launches["launches_tree"][k["name"]]
         k["launches_staged"] = staged_launches.get(k["name"], 0)
         k["launches_sharded"] = sharded_launches.get(k["name"], 0)
+        k["launches_dp_train"] = dp_launches.get(k["name"], 0)
     with phase("8 kernels"):
         print(json.dumps(kernels), flush=True)
     print(f"   total {time.perf_counter() - t_start:.1f}s", flush=True)

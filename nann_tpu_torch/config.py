@@ -72,15 +72,9 @@ class TrainConfig:
     print_freq: int = 50
     max_to_keep: int = 50             # checkpoint retention
     seed: int = 0
-    # data-parallel shards of the train step
+    # data-parallel shards of the train step: the CLI trains on a world of
+    # dp ranks (train/loop.py, main.py)
     dp: int = 1
-
-    def __post_init__(self):
-        if self.dp > 1:
-            raise NotImplementedError(
-                "TrainConfig.dp > 1: the port trains on one card; "
-                "data-parallel training is queued in ROADMAP.md (queue 1, "
-                "\"Data-parallel training\")")
 
 
 def default_frontier_cap(num_items: int) -> int:

@@ -4,7 +4,9 @@ The numpy iterator of nann_tpu/data/dataio.py: the dataset (a dict of
 arrays) is shuffled per epoch by `default_rng(seed + epoch)`, batched with
 drop-remainder, and produced on a background thread, so a seed gives the
 same batches in both packages. It yields numpy batches; the train step moves
-each to its device.
+each to its device. With a mesh it yields this rank's block of each global
+batch: rows [i * B / dp, (i + 1) * B / dp) at "dp" place i, the rows a
+P("dp") sharding gives device i in JAX.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ class BatchIterator:
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int,
                  epochs: int = 1, drop_remainder: bool = True, seed: int = 0,
-                 prefetch: int = 2):
+                 mesh=None, prefetch: int = 2):
         self.data = data
         self.batch_size = batch_size
         self.epochs = epochs
@@ -29,6 +31,12 @@ class BatchIterator:
         self.seed = seed
         self.prefetch = prefetch
         self.num_samples = len(next(iter(data.values())))
+        self._dp, self._dp_index = 1, 0
+        if mesh is not None:
+            self._dp, self._dp_index = mesh.size("dp"), mesh.index("dp")
+            if batch_size % self._dp:
+                raise ValueError(f"batch_size {batch_size} does not split "
+                                 f"over dp={self._dp}")
 
     def __len__(self) -> int:
         return self.batches_per_epoch * self.epochs
@@ -102,4 +110,14 @@ class BatchIterator:
             start0 = offset * self.batch_size if epoch == first_epoch else 0
             for start in range(start0, end, self.batch_size):
                 idx = order[start:start + self.batch_size]
-                yield {k: v[idx] for k, v in self.data.items()}
+                yield {k: v[self._block(idx)] for k, v in self.data.items()}
+
+    def _block(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's block of a global batch's indices."""
+        if self._dp == 1:
+            return idx
+        if len(idx) % self._dp:
+            raise ValueError(f"a batch of {len(idx)} does not split over "
+                             f"dp={self._dp}")
+        n = len(idx) // self._dp
+        return idx[self._dp_index * n:(self._dp_index + 1) * n]

@@ -20,7 +20,12 @@ Jobs:
   all                train, select_checkpoint, extract_feature, build_index,
                      test_all, test, export, verify_export
 
-Every job runs on the card unless --device cpu is given. Checkpoints are the
+Every job runs on the card unless --device cpu is given. `--dp N` trains on
+N ranks (make_mesh(dp=N, mp=1)): under torchrun with WORLD_SIZE == N the job
+joins that world, otherwise it starts ranks 1..N-1 itself and is rank 0;
+NCCL when every rank has a card of its own, gloo otherwise (on one shared
+card, and for --device cpu). Rank 0 alone returns the result and runs the
+later jobs of `all`. Checkpoints are the
 port's own (model/step_N/train_state.pt); the other files (embeddings, index,
 export bundle, tree, selected_step.json, parity_result.json) are the JAX
 package's, so either package reads what the other wrote.
@@ -34,14 +39,18 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import multiprocessing
 import os
 import signal
+import socket
 import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import ModelConfig, SearchConfig, TrainConfig, default_frontier_cap
 from .data import synthetic_dataset
@@ -117,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print-freq", type=int, default=50)
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel shards (the port trains on one card)")
+                   help="data-parallel shards: train on a world of this many "
+                        "ranks (torchrun's, or started here)")
     # synthetic scale
     p.add_argument("--num-item", type=int, default=5000)
     p.add_argument("--num-cate", type=int, default=50)
@@ -311,14 +321,103 @@ def _restore(mcfg, tcfg, paths, step: Optional[int] = None,
 
 
 def job_train(args, mcfg, tcfg, scfg, paths):
+    if tcfg.dp > 1:
+        return _train_dp(args, tcfg.dp)
+    return _train(args, mcfg, tcfg, paths, args.device)
+
+
+def _train(args, mcfg, tcfg, paths, device, mesh=None):
     train, _test, feats = load_dataset(args)
     state, metrics = train_loop(
         mcfg, tcfg, train, feats,
         ckpt_dir=paths.model_save_dir,
         num_steps=args.max_steps,
         metrics_path=os.path.join(args.output_root, "train_metrics.jsonl"),
-        device=args.device)
-    logger.info(f"train done: {metrics}")
+        device=device, mesh=mesh)
+    if mesh is None or dist.get_rank() == 0:
+        logger.info(f"train done: {metrics}")
+    return state
+
+
+# a rank that waits longer than this for the others in a collective fails
+DP_TIMEOUT_S = 600
+
+
+def _torchrun_rank(dp: int) -> Optional[int]:
+    """This process's rank when torchrun started a world of `dp` ranks."""
+    if dp > 1 and int(os.environ.get("WORLD_SIZE", "1")) == dp:
+        return int(os.environ["RANK"])
+    return None
+
+
+def dp_backend(device: str, world: int) -> str:
+    """NCCL when every rank of the world has a card of its own, gloo
+    otherwise: ranks sharing one card (NCCL refuses two ranks on a card;
+    gloo moves CUDA tensors through host memory) and the CPU."""
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _train_rank(args, rank: int, world: int, init_method: str,
+                local_rank: int):
+    """One rank of --dp training: join the world, train on
+    make_mesh(dp=world, mp=1), leave it. Returns the state on rank 0."""
+    from .parallel import make_mesh
+    backend = dp_backend(args.device, world)
+    device = args.device
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{local_rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        if rank == 0:
+            msg = (f"--dp {world}: {world} ranks, backend "
+                   f"{dist.get_backend()}, device {device}")
+            print(msg, flush=True)
+            logger.info(msg)
+        mcfg, tcfg, _scfg = build_configs(args)
+        state = _train(args, mcfg, tcfg, Paths(args.output_root), device,
+                       mesh=make_mesh(dp=world, mp=1))
+    finally:
+        dist.destroy_process_group()
+    return state if rank == 0 else None
+
+
+def _train_dp(args, world: int):
+    """--dp N training (nann_tpu/main.py:296-304 on a mesh of N devices):
+    join torchrun's world of N ranks, or start ranks 1..N-1 and be rank 0.
+    A rank that fails fails the job."""
+    rank = _torchrun_rank(world)
+    if rank is not None:
+        return _train_rank(args, rank, world, "env://",
+                           int(os.environ.get("LOCAL_RANK", rank)))
+    load_dataset(args)   # a synthetic corpus is cached before ranks read it
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        init_method = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_train_rank,
+                         args=(args, r, world, init_method, r))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        state = _train_rank(args, 0, world, init_method, 0)
+        for p in procs:
+            p.join(timeout=DP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    failed = {r: p.exitcode for r, p in enumerate(procs, 1) if p.exitcode}
+    if failed:
+        raise RuntimeError(f"--dp {world}: rank(s) failed, exit codes "
+                           f"{failed}")
     return state
 
 
@@ -744,13 +843,19 @@ def main(argv=None):
     if args.index_dir:
         os.makedirs(args.index_dir, exist_ok=True)
         paths.index_dir = args.index_dir
-    logger.info(f"job={args.job_type} model={mcfg} train={tcfg} search={scfg}")
+    lead = (_torchrun_rank(tcfg.dp) or 0) == 0
+    if lead:
+        logger.info(f"job={args.job_type} model={mcfg} train={tcfg} "
+                    f"search={scfg}")
     if args.job_type != "all":
         return JOBS[args.job_type](args, mcfg, tcfg, scfg, paths)
     results = {}
     for name in ALL_ORDER:
-        logger.info(f"=== {name} ===")
+        if lead:
+            logger.info(f"=== {name} ===")
         results[name] = JOBS[name](args, mcfg, tcfg, scfg, paths)
+        if not lead:
+            return None     # torchrun's other ranks: training only
     return results
 
 

@@ -6,7 +6,8 @@ the JAX pytrees (`dense/kernel`, `bn/gamma`, `prelu/alpha`, and the state's
 `bn/mean`, `bn/var`), so bundles map onto them name for name. `batch_norm`
 and `dnn_apply` are the eval mode (the moving statistics); `batch_norm_train`
 and `dnn_apply_train` the training mode (batch statistics, and the new moving
-statistics returned beside the output).
+statistics returned beside the output; with a "dp" process group, the
+statistics of the global batch).
 
 Products follow the JAX cast points: inputs and kernels are rounded to the
 compute dtype, multiplied with float32 accumulation, and the block's output is
@@ -20,6 +21,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Params = Dict[str, object]
 State = Dict[str, object]
@@ -110,18 +112,34 @@ def batch_norm(p: Params, s: State, x: torch.Tensor,
 
 
 def batch_norm_train(p: Params, s: State, x: torch.Tensor,
-                     momentum: float = 0.99, epsilon: float = 1e-3
-                     ) -> Tuple[torch.Tensor, State]:
+                     momentum: float = 0.99, epsilon: float = 1e-3,
+                     group=None) -> Tuple[torch.Tensor, State]:
     """Training-mode BatchNorm over all axes but the last: normalises by the
     batch statistics and returns (y, new moving statistics), as
-    nann_tpu/models/layers.py:95-120 with training=True."""
+    nann_tpu/models/layers.py:95-120 with training=True.
+
+    With `group` (the "dp" process group of a batch split evenly over its
+    ranks, x this rank's block) the statistics are the global batch's, as
+    JAX computes them on a "dp" mesh: the mean from an all-reduced sum, the
+    variance from an all-reduced sum of squared deviations from that mean
+    (jnp.var's two passes; E[x^2] - E[x]^2 cancels over 160,800 float32
+    rows), both over the global row count. Every rank gets the same
+    statistics and so the same new state. Each rank backprops its own share
+    of the loss (collectives.all_reduce_sum)."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
-    mean = xf.mean(axes)
-    # Divergence guard (population variance): jnp.var is ddof=0, torch.var
-    # defaults to the unbiased estimate. Both the normalisation and the
-    # moving variance below use this population variance.
-    var = xf.var(axes, correction=0)
+    if group is None:
+        mean = xf.mean(axes)
+        # Divergence guard (population variance): jnp.var is ddof=0,
+        # torch.var defaults to the unbiased estimate. Both the
+        # normalisation and the moving variance below use this population
+        # variance.
+        var = xf.var(axes, correction=0)
+    else:
+        from ..parallel.collectives import all_reduce_sum
+        count = xf[..., 0].numel() * dist.get_world_size(group)
+        mean = all_reduce_sum(xf.sum(axes), group) / count
+        var = all_reduce_sum(((xf - mean) ** 2).sum(axes), group) / count
     new_state = {
         "mean": momentum * s["mean"] + (1 - momentum) * mean.detach(),
         "var": momentum * s["var"] + (1 - momentum) * var.detach(),
@@ -157,11 +175,13 @@ def dnn_apply_train(p: Params, s: State, x: torch.Tensor,
                     norm_op: Optional[str] = None,
                     active_op: Optional[str] = None,
                     bn_momentum: float = 0.99, bn_epsilon: float = 1e-3,
-                    compute_dtype=None) -> Tuple[torch.Tensor, State]:
-    """One block in training mode: (output, the block's new state)."""
+                    compute_dtype=None, group=None
+                    ) -> Tuple[torch.Tensor, State]:
+    """One block in training mode: (output, the block's new state); with
+    `group`, the batch norm's statistics over the global batch."""
     out = dense(p["dense"], x, compute_dtype)
     new_s: State = {}
     if norm_op == "bn":
         out, new_s["bn"] = batch_norm_train(p["bn"], s["bn"], out,
-                                            bn_momentum, bn_epsilon)
+                                            bn_momentum, bn_epsilon, group)
     return _norm_act(p, out, norm_op, active_op), new_s

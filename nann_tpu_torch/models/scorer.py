@@ -16,7 +16,7 @@ too (`user_embed`, `item_tower`, `scorer_forward_train`, `score_pairs`).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,30 +99,36 @@ def nonlinear_attention(att: Params, item_emb: torch.Tensor,
     return torch.matmul(weights.float(), user_seq_emb.to(dt).float()).to(dt)
 
 
-def _masked_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _masked_lookup(table: torch.Tensor, ids: torch.Tensor,
+                   lookup: Optional[Callable] = None) -> torch.Tensor:
     """Embedding lookup with id 0 (padding/missing) mapped to the zero
-    vector (scorer.py:99-104)."""
-    emb = F.embedding(ids.long(), table)
+    vector (scorer.py:99-104). `lookup(table, ids)` replaces the dense
+    lookup: for a row-sharded table, parallel.sharded_embedding's."""
+    emb = lookup(table, ids) if lookup else F.embedding(ids.long(), table)
     return emb * (ids > 0).to(emb.dtype).unsqueeze(-1)
 
 
-def user_embed(params: Params, item_ids: torch.Tensor, cate_ids: torch.Tensor
-               ) -> torch.Tensor:
+def user_embed(params: Params, item_ids: torch.Tensor, cate_ids: torch.Tensor,
+               lookup: Optional[Callable] = None) -> torch.Tensor:
     """Behavior sequence -> user sequence embedding [B, L, 2*emb_dim]
-    (scorer.py:107-113)."""
-    e_item = _masked_lookup(params["ht_item"], item_ids)
-    e_cate = _masked_lookup(params["ht_cate"], cate_ids)
+    (scorer.py:107-113); `lookup` for row-sharded tables."""
+    e_item = _masked_lookup(params["ht_item"], item_ids, lookup)
+    e_cate = _masked_lookup(params["ht_cate"], cate_ids, lookup)
     return torch.cat([e_item, e_cate], dim=-1)
 
 
 def item_tower(params: Params, state: State, mcfg: ModelConfig,
-               item_ids: torch.Tensor, cate_ids: torch.Tensor, training: bool
+               item_ids: torch.Tensor, cate_ids: torch.Tensor, training: bool,
+               group=None, lookup: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, State]:
     """Item/category ids -> (item embedding [..., item_emb_dim] float32, new
     state) (scorer.py:116-131); in eval mode the state comes back as it
-    went in."""
-    x = torch.cat([_masked_lookup(params["ht_item"], item_ids),
-                   _masked_lookup(params["ht_cate"], cate_ids)], dim=-1)
+    went in. In training mode `group` (the "dp" process group) takes the
+    batch norms' statistics over the global batch; `lookup` is for
+    row-sharded tables."""
+    x = torch.cat([_masked_lookup(params["ht_item"], item_ids, lookup),
+                   _masked_lookup(params["ht_cate"], cate_ids, lookup)],
+                  dim=-1)
     dt = torch_dtype(mcfg.compute_dtype)
     new_tower = []
     for p, s, (norm, act) in zip(params["item_tower"], state["item_tower"],
@@ -130,7 +136,7 @@ def item_tower(params: Params, state: State, mcfg: ModelConfig,
         if training:
             x, ns = layers.dnn_apply_train(p, s, x, norm, act,
                                            mcfg.bn_momentum, mcfg.bn_epsilon,
-                                           dt)
+                                           dt, group)
         else:
             x, ns = layers.dnn_apply(p, s, x, norm, act, mcfg.bn_epsilon,
                                      dt), s
@@ -159,17 +165,17 @@ def scorer_forward(params: Params, state: State, mcfg: ModelConfig,
 
 
 def scorer_forward_train(params: Params, state: State, mcfg: ModelConfig,
-                         user_seq_emb: torch.Tensor, item_emb: torch.Tensor
-                         ) -> Tuple[torch.Tensor, State]:
+                         user_seq_emb: torch.Tensor, item_emb: torch.Tensor,
+                         group=None) -> Tuple[torch.Tensor, State]:
     """Training-mode scorer (scorer.py:155-178 with training=True): the
-    head's batch norms over the batch -> (logits [B, N] float32, new
-    state)."""
+    head's batch norms over the batch (with `group`, the "dp" process
+    group, over the global batch) -> (logits [B, N] float32, new state)."""
     dt = torch_dtype(mcfg.compute_dtype)
     x = _head_input(params, user_seq_emb, item_emb, dt)
     new_head = []
     for p, s, (norm, act) in zip(params["head"], state["head"], HEAD_SPECS):
         x, ns = layers.dnn_apply_train(p, s, x, norm, act, mcfg.bn_momentum,
-                                       mcfg.bn_epsilon, dt)
+                                       mcfg.bn_epsilon, dt, group)
         new_head.append(ns)
     return x.squeeze(-1).float(), {**state, "head": new_head}
 

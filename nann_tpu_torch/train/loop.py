@@ -5,6 +5,12 @@ from the latest checkpoint, moving-average loss/acc meters, periodic logging
 and an optional metrics JSONL. Checkpoints are the port's own
 (`dataclasses_io.py`): params, batch-norm state, optimizer state and step.
 
+With a mesh (parallel.make_mesh over an initialised torch.distributed
+world) every rank of the mesh runs the loop on its block of each global
+batch; the rank at place (0, 0) logs, writes the metrics and saves and
+prunes the checkpoints, and the others wait at a barrier after each save.
+Every rank reads the checkpoint it resumes from.
+
 Runnable on synthetic data, on the card unless told otherwise:
     python -m nann_tpu_torch.train.loop --steps 200 --out /tmp/nann_run
 """
@@ -18,11 +24,13 @@ import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig, TrainConfig
 from ..data import BatchIterator, synthetic_dataset
 from ..utils import AverageMeter, get_logger, resolve_device
-from .dataclasses_io import restore_train_state, save_train_state
+from .dataclasses_io import is_lead, restore_train_state, save_train_state
 from .step import TrainState, create_train_state, make_train_step
 
 logger = get_logger("nann_tpu_torch.train")
@@ -51,32 +59,56 @@ def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _mesh_max(mesh, value: int, device) -> int:
+    """The MAX of `value` over every rank of the mesh (over its "dp" group,
+    then its "mp" group); a barrier of the mesh's ranks as well."""
+    t = torch.tensor([value], device=device)
+    for axis in ("dp", "mp"):
+        if mesh.size(axis) > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    return int(t.item())
+
+
 def train_loop(mcfg: ModelConfig, tcfg: TrainConfig,
                train_data: Dict[str, np.ndarray],
                item_features: Dict[str, np.ndarray],
                ckpt_dir: Optional[str] = None,
                num_steps: Optional[int] = None,
                metrics_path: Optional[str] = None,
-               device="cuda") -> Tuple[TrainState, Dict[str, float]]:
+               device="cuda", mesh=None
+               ) -> Tuple[TrainState, Dict[str, float]]:
     """Run training; returns (final_state, final_metrics).
 
     num_steps is the total global-step budget (also the cosine horizon
     unless tcfg.lr_total_steps pins one); metrics_path an optional JSONL
-    sink for the logged steps' metrics.
+    sink for the logged steps' metrics. With `mesh` every rank of the mesh
+    calls it (the batch split over "dp", the state replicated, as
+    nann_tpu/train/loop.py runs on a mesh); the metrics are the global
+    batch's on every rank.
     """
     dev = resolve_device(device)
+    lead = is_lead(mesh)
     it = BatchIterator(train_data, tcfg.batch_size, epochs=tcfg.train_epochs,
-                       drop_remainder=True, seed=tcfg.seed)
+                       drop_remainder=True, seed=tcfg.seed, mesh=mesh)
     total = len(it) if num_steps is None else num_steps
     state, schedule = create_train_state(mcfg, tcfg, total_steps=total,
                                          device=dev)
-    step_fn = make_train_step(mcfg, tcfg, schedule, item_features, device=dev)
+    step_fn = make_train_step(mcfg, tcfg, schedule, item_features, device=dev,
+                              mesh=mesh)
+
+    def save(path):
+        save_train_state(path, state, mesh)
+        if lead:
+            _prune_checkpoints(ckpt_dir, keep=tcfg.max_to_keep)
+        if mesh is not None:
+            _mesh_max(mesh, 0, dev)     # the barrier: (0, 0) has written
 
     start_step = 0
     if ckpt_dir:
         resume = latest_checkpoint_step(ckpt_dir)
         if resume is not None:
-            logger.info(f"auto-resuming from {ckpt_dir}/step_{resume}")
+            if lead:
+                logger.info(f"auto-resuming from {ckpt_dir}/step_{resume}")
             state = restore_train_state(os.path.join(ckpt_dir, f"step_{resume}"),
                                         state)
             start_step = resume
@@ -85,7 +117,9 @@ def train_loop(mcfg: ModelConfig, tcfg: TrainConfig,
     # (data position fast-forwarded, not replayed; the optimizer's step
     # count, and with it the lr schedule, restores from the checkpoint)
     if start_step >= total:
-        logger.info(f"resume step {start_step} >= budget {total}; nothing to do")
+        if lead:
+            logger.info(f"resume step {start_step} >= budget {total}; "
+                        f"nothing to do")
         return state, {}
 
     meters = {k: AverageMeter(k, ":.4f", moving_average=True)
@@ -108,10 +142,11 @@ def train_loop(mcfg: ModelConfig, tcfg: TrainConfig,
             for k, m in meters.items():
                 m.update(metrics_host[k])
             bt.update(time.time() - tic)
-            logger.info(f"[{step_idx}/{total}] " +
-                        ", ".join(str(m) for m in meters.values()) +
-                        f", {bt}")
-            if metrics_path:
+            if lead:
+                logger.info(f"[{step_idx}/{total}] " +
+                            ", ".join(str(m) for m in meters.values()) +
+                            f", {bt}")
+            if metrics_path and lead:
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps({"step": step_idx,
                                         "batch_time": bt.val,
@@ -120,17 +155,18 @@ def train_loop(mcfg: ModelConfig, tcfg: TrainConfig,
 
         if ckpt_dir and (step_idx % tcfg.save_freq == 0
                          or step_idx + 1 == total):
-            save_train_state(os.path.join(ckpt_dir, f"step_{step_idx + 1}"),
-                             state)
-            _prune_checkpoints(ckpt_dir, keep=tcfg.max_to_keep)
+            save(os.path.join(ckpt_dir, f"step_{step_idx + 1}"))
 
     # end-of-training save: the in-loop condition `step_idx + 1 == total`
     # never fires when the data runs out before the step budget
     if ckpt_dir and stepped:
         final = os.path.join(ckpt_dir, f"step_{state.step}")
-        if not os.path.exists(final):
-            save_train_state(final, state)
-            _prune_checkpoints(ckpt_dir, keep=tcfg.max_to_keep)
+        missing = not os.path.exists(final)
+        if mesh is not None:
+            # one answer on every rank, so that all of them save or none
+            missing = bool(_mesh_max(mesh, int(missing), dev))
+        if missing:
+            save(final)
 
     if not metrics_host:
         metrics_host = {k: float("nan") for k in meters}

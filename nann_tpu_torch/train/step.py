@@ -1,4 +1,5 @@
-"""Train state and the train step (nann_tpu/train/step.py), on one device.
+"""Train state and the train step (nann_tpu/train/step.py), on one device
+or on a ("dp", "mp") mesh of torch.distributed ranks.
 
 The optimizer is `torch.optim.AdamW` with optax.adamw's constants (b1 0.9,
 b2 0.999, eps 1e-8, decay decoupled and scaled by the learning rate, on every
@@ -6,6 +7,16 @@ parameter), its learning rate set before each update from the port's own
 copy of the optax schedules (constant, linear warmup, warmup-cosine).
 Parameters are nested dicts of leaf tensors that require grad; the step
 updates them in place, as JAX's jitted step donates its state.
+
+On a mesh each rank runs the step on its block of the global batch, as
+JAX's step with the batch sharded over "dp": the loss, metrics and
+batch-norm statistics are the global batch's (train/objective.py), the
+gradients are summed over "dp" after the backward, and AdamW runs on each
+rank's own leaves. Leaves that `state_shardings` row-shards over "mp" (the
+embedding tables and their moments, parallel.train_state_shardings) are
+this rank's block (`shard_train_state`), looked up through
+parallel.sharded_embedding; every other leaf is replicated and stays equal
+on every rank, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..models import scorer
 from ..models.layers import Params, State
+from ..parallel import collectives
+from ..parallel.sharding import local_block
 from ..utils import resolve_device
 from .objective import build_targets, nann_loss
 
@@ -171,21 +184,104 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(mixed[0]))
 
 
+def _sharded(placements) -> bool:
+    return any(hasattr(p, "dim") for p in placements)
+
+
+def shard_train_state(state: TrainState, shardings, mesh) -> TrainState:
+    """This rank's TrainState under `shardings` (parallel.
+    train_state_shardings): every leaf and AdamW moment copied as this
+    rank's block of it (parallel.local_block; a replicated leaf whole), and
+    a new AdamW over the new leaves with the state's hyperparameters. The
+    counterpart of JAX's device_put of a TrainState by its shardings."""
+    def block(t, placements, mesh):
+        return local_block(t.detach(), placements, mesh).clone()
+
+    placed = placed_params(state.params, shardings, mesh, block)
+    # the saved param groups bring the state's hyperparameters back
+    local = train_state_from(placed, state.bn_state, TrainConfig())
+    saved = state.opt_state.state_dict()
+    local.opt_state.load_state_dict({
+        "state": placed_moments(saved["state"], state.params, shardings,
+                                mesh, block),
+        "param_groups": saved["param_groups"]})
+    return TrainState(placed, state.bn_state, local.opt_state, state.step)
+
+
+def placed_params(params: Params, shardings, mesh, fn) -> Params:
+    """params with fn(leaf, placements, mesh) at every leaf, its placements
+    those of shardings["params"]: parallel.local_block (this rank's block
+    of a whole leaf) or parallel.whole_leaf (the whole of a block)."""
+    return _rebuild(params, {
+        name: fn(leaf, _placements(shardings["params"], name), mesh)
+        for name, leaf in named_leaves(params)})
+
+
+def placed_moments(moments: Dict[int, Dict[str, torch.Tensor]],
+                   params: Params, shardings, mesh, fn):
+    """An AdamW state dict's "state" (by the index of each leaf of
+    `params`) with fn(moment, placements, mesh) at every moment that
+    shardings["opt_state"] places."""
+    names = [name for name, _ in named_leaves(params)]
+    return {i: {m: fn(v, shardings["opt_state"][names[i]][m], mesh)
+                if m in shardings["opt_state"][names[i]] else v
+                for m, v in moment.items()}
+            for i, moment in moments.items()}
+
+
+def _placements(tree, name: str):
+    """The placements of the leaf named `a/b/0/c` in a shardings tree."""
+    for key in name.split("/"):
+        tree = tree[int(key)] if isinstance(tree, list) else tree[key]
+    return tree
+
+
+def _rebuild(tree, flat: Dict[str, torch.Tensor], prefix: str = ""):
+    """tree's structure with the leaf named `a/b/0/c` taken from flat."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, flat, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, flat, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return flat[prefix.rstrip("/")]
+
+
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, schedule: Schedule,
-                    item_features: Dict[str, np.ndarray], device="cuda"
-                    ) -> Callable:
+                    item_features: Dict[str, np.ndarray], device="cuda",
+                    mesh=None, state_shardings=None) -> Callable:
     """Build the train step.
 
     Args:
         item_features: "item_id", "cate_id" [num_item] and "weight_tag"
             [num_item] popularity probabilities (numpy or tensors).
+        mesh: a parallel.Mesh; if given, each rank steps on its block of the
+            global batch (BatchIterator(mesh=...) gives it) and the step
+            computes what the single-device step computes on the global
+            batch. Every rank of the mesh calls the step.
+        state_shardings: with a mesh, parallel.train_state_shardings of the
+            state: the state must then be `shard_train_state`'s; default
+            every leaf replicated.
 
     Returns:
         step(state, batch, seed) -> (new_state, metrics): the batch (numpy or
         tensors) is moved to the device; the negatives are drawn from
-        step_generator(seed, state.step); metrics are 0-d tensors.
+        step_generator(seed, state.step); metrics are 0-d tensors (with a
+        mesh, the global batch's on every rank).
     """
     dev = resolve_device(device)
+    group, dp, dp_index, lookup = None, 1, 0, None
+    if mesh is not None:
+        dp, dp_index = mesh.size("dp"), mesh.index("dp")
+        if dp > 1:
+            group = mesh.group("dp")
+        if state_shardings is not None:
+            tables = {name: _sharded(state_shardings["params"][name])
+                      for name in ("ht_item", "ht_cate")}
+            if len(set(tables.values())) != 1:
+                raise ValueError(f"the embedding tables must be sharded "
+                                 f"alike, got {tables}")
+            if tables["ht_item"]:
+                lookup = collectives.sharded_embedding(mesh)
 
     def on_dev(x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -199,11 +295,15 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, schedule: Schedule,
         batch = {k: on_dev(v) for k, v in batch.items()}
         targets = build_targets(step_generator(seed, state.step, dev), batch,
                                 item_ids, cate_ids, log_probs, probs,
-                                tcfg.num_neg)
+                                tcfg.num_neg, dp, dp_index)
         state.opt_state.zero_grad(set_to_none=True)
         loss, (new_bn, metrics) = nann_loss(state.params, state.bn_state,
-                                            mcfg, tcfg, batch, targets)
+                                            mcfg, tcfg, batch, targets,
+                                            group, lookup)
         loss.backward()
+        if group is not None:
+            collectives.all_reduce_grads(
+                [leaf for _, leaf in named_leaves(state.params)], group)
         apply_gradients(state.opt_state, schedule, state.step)
         return (TrainState(state.params, new_bn, state.opt_state,
                            state.step + 1), metrics)

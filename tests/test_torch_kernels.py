@@ -1014,3 +1014,68 @@ def test_tree_search_kernel_path_equals_plain_path(cuda, dt):
         rel = np.abs(gs[q][g_at] - ws[q][w_at]) / (1 + np.abs(ws[q][w_at]))
         assert rel.max() <= TOL[getattr(torch, dt)]
     assert np.mean(overlaps) >= 0.98, overlaps
+
+
+@pytest.fixture
+def solo_group(cuda):
+    """A gloo world of this one process (the sharded lookup's group)."""
+    import socket
+    import torch.distributed as dist
+    if dist.is_initialized():
+        yield dist.group.WORLD
+        return
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _lookup_case(cuda, lo=3000, rows=2000, width=32):
+    """A dense float32 table [6000, width], this rank's block of it (rows
+    [lo, lo + rows)), ids over the whole table with repeats, a cotangent."""
+    gen = torch.Generator().manual_seed(width)
+    dense = torch.randn((6000, width), generator=gen)
+    ids = torch.randint(0, 6000, (400, 201), generator=gen, dtype=torch.int32)
+    ids[0, :50] = lo + 7
+    ct = torch.randn((400, 201, width), generator=gen)
+    return (dense.to(cuda), dense[lo:lo + rows].contiguous().to(cuda),
+            ids.to(cuda), ct.to(cuda))
+
+
+def test_sharded_lookup_matches_plain(cuda, solo_group):
+    """The row-sharded lookup's forward through the gather_rows kernel
+    equals its plain version: the owned rows of the dense table, zeros for
+    the rows other ranks own."""
+    from nann_tpu_torch.parallel import collectives
+    lo, rows = 3000, 2000
+    dense, block, ids, _ = _lookup_case(cuda, lo, rows)
+    before = vo.gather_rows.launches
+    got = collectives.sharded_lookup(block, ids, lo, solo_group)
+    torch.cuda.synchronize()
+    assert vo.gather_rows.launches == before + 1
+    mine = (ids >= lo) & (ids < lo + rows)
+    want = torch.where(mine[..., None], dense[ids.long()], 0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    plain = collectives.sharded_lookup(block, ids, lo, solo_group,
+                                       vo.gather_rows_plain)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+def test_sharded_lookup_backward_matches_index_add(cuda, solo_group):
+    """Its backward: the block's rows of index_add_ of the gradient rows
+    into a dense table."""
+    from nann_tpu_torch.parallel import collectives
+    lo, rows = 3000, 2000
+    dense, block, ids, ct = _lookup_case(cuda, lo, rows)
+    block.requires_grad_(True)
+    (collectives.sharded_lookup(block, ids, lo, solo_group) * ct
+     ).sum().backward()
+    want = torch.zeros_like(dense).index_add_(
+        0, ids.reshape(-1).long(), ct.reshape(-1, ct.shape[-1]))
+    torch.testing.assert_close(block.grad, want[lo:lo + rows], rtol=1e-5,
+                               atol=1e-5)

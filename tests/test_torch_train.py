@@ -159,8 +159,8 @@ def use_draw(monkeypatch, draw):
 def test_train_config_matches_jax():
     assert dataclasses.asdict(TrainConfig()) == \
         dataclasses.asdict(JTrainConfig())
-    with pytest.raises(NotImplementedError, match="Data-parallel training"):
-        TrainConfig(dp=2)
+    assert dataclasses.asdict(TrainConfig(dp=2)) == \
+        dataclasses.asdict(JTrainConfig(dp=2))
 
 
 # --------------------------------------------------------------------- data

@@ -311,6 +311,175 @@ def _engine_case(rank, payload, mcfg, scfg, params, state, mesh):
     return out
 
 
+# ------------------------------------------------ data-parallel training
+
+
+def _sub(payload, prefix):
+    """The payload's arrays under `prefix/`, by their names after it."""
+    return {k[len(prefix) + 1:]: v for k, v in payload.items()
+            if k.startswith(prefix + "/")}
+
+
+def _train_configs(payload, prefix="cfg"):
+    import json
+    from nann_tpu_torch.config import ModelConfig, TrainConfig
+    cfg = json.loads(str(payload[prefix]))
+    return ModelConfig(**cfg["model"]), TrainConfig(**cfg["train"])
+
+
+def _state_out(state, tag, out):
+    """A TrainState's leaves, bn state and AdamW moments by name, and the
+    step, under `tag/`."""
+    from nann_tpu_torch.models.scorer import flatten
+    from nann_tpu_torch.train.step import named_leaves
+    # copies: the step updates the tensors in place, and .numpy() shares
+    for k, v in flatten(state.params).items():
+        out[f"{tag}/params/{k}"] = v.copy()
+    for k, v in flatten(state.bn_state).items():
+        out[f"{tag}/bn/{k}"] = v.copy()
+    moments = state.opt_state.state_dict()["state"]
+    for i, (name, _) in enumerate(named_leaves(state.params)):
+        for m in ("exp_avg", "exp_avg_sq"):
+            if i in moments:
+                out[f"{tag}/{m}/{name}"] = moments[i][m].numpy().copy()
+    out[f"{tag}/step"] = np.asarray(state.step)
+
+
+def _metrics_out(metrics, tag, out):
+    for k, v in metrics.items():
+        out[f"{tag}/metrics/{k}"] = np.asarray(float(v))
+
+
+def dp_train_cases(rank, payload):
+    """Data-parallel training on a world of 2 or 4 ranks: the global batch
+    norm, the all-reduce's second derivative, the row-sharded lookup, the
+    dp step from JAX's initial parameters on JAX's draw, BatchIterator's
+    blocks; on 2 ranks also three dp steps (each from a checkpoint the test
+    steps from on one rank) and a dp=1 x mp=2 step with
+    train_state_shardings, its checkpoint, and a restore of a single-device
+    checkpoint into the row-sharded state."""
+    import torch
+    import torch.distributed as dist
+    from nann_tpu_torch.data import BatchIterator
+    from nann_tpu_torch.models import layers
+    from nann_tpu_torch.parallel import (all_reduce_sum, make_mesh,
+                                         sharded_embedding,
+                                         train_state_shardings)
+    from nann_tpu_torch.train import objective
+    from nann_tpu_torch.train import step as t_step
+    from nann_tpu_torch.train.dataclasses_io import (restore_train_state,
+                                                     save_train_state)
+
+    world = dist.get_world_size()
+    mesh = make_mesh(dp=world, mp=1)
+    group = mesh.group("dp")
+    out = {}
+
+    # the batch norm over this rank's block of x, backprop of its share
+    x, ct = payload["bn_x"], payload["bn_ct"]
+    n = x.shape[0] // world
+    xb = torch.from_numpy(x[rank * n:(rank + 1) * n].copy()).requires_grad_()
+    bn_p = {k: torch.from_numpy(v) for k, v in _sub(payload, "bn_p").items()}
+    bn_s = {k: torch.from_numpy(v) for k, v in _sub(payload, "bn_s").items()}
+    y, st = layers.batch_norm_train(bn_p, bn_s, xb, 0.99, 1e-3, group)
+    (y * torch.from_numpy(ct[rank * n:(rank + 1) * n])).sum().backward()
+    out["bn_y"] = y.detach().numpy()
+    out["bn_dx"] = xb.grad.numpy()
+    for k, v in st.items():
+        out[f"bn_state/{k}"] = v.numpy()
+
+    # (sum_r x_r^2)^2 from each rank's share, differentiated twice
+    xr = torch.tensor(0.5 * (rank + 1), dtype=torch.float64,
+                      requires_grad=True)
+    total = all_reduce_sum(xr ** 2, group)
+    (g,) = torch.autograd.grad(total ** 2 / world, xr, create_graph=True)
+    (h,) = torch.autograd.grad(g, xr)
+    out["ar_grad"], out["ar_hess"] = g.detach().numpy(), h.numpy()
+
+    # the row-sharded lookup on an mp mesh: forward and its gradient block
+    mpm = make_mesh(dp=1, mp=world)
+    table = payload["lookup_table"]
+    rows = table.shape[0] // world
+    block = torch.from_numpy(table[rank * rows:(rank + 1) * rows].copy()
+                             ).requires_grad_()
+    got = sharded_embedding(mpm)(block, torch.from_numpy(payload["lookup_ids"]))
+    (got * torch.from_numpy(payload["lookup_ct"])).sum().backward()
+    out["lookup"] = got.detach().numpy()
+    out["lookup_grad"] = block.grad.numpy()
+
+    mcfg, tcfg = _train_configs(payload)
+    feats = _sub(payload, "feat")
+    train = _sub(payload, "train")
+
+    # BatchIterator's blocks, and the batch that does not split
+    it = BatchIterator(train, 32, epochs=2, seed=1, mesh=mesh, prefetch=2)
+    for i, b in enumerate(it):
+        for k, v in b.items():
+            out[f"iter/{i}/{k}"] = v
+    for i, b in enumerate(it.iter_from(11)):
+        out[f"iter_from/{i}/gt_item_id"] = b["gt_item_id"]
+    try:
+        BatchIterator(train, 4 * world + 1, mesh=mesh)
+        out["iter_raises"] = np.asarray(0)
+    except ValueError:
+        out["iter_raises"] = np.asarray(1)
+
+    if world == 2:
+        # three dp steps, each from a checkpoint the test steps from
+        state, schedule = t_step.create_train_state(mcfg, tcfg, device="cpu")
+        step = t_step.make_train_step(mcfg, tcfg, schedule, feats, "cpu",
+                                      mesh=mesh)
+        ckpt = str(payload["ckpt_dir"])
+        for k, batch in enumerate(BatchIterator(train, 32, seed=0,
+                                                mesh=mesh)):
+            if k == 3:
+                break
+            save_train_state(f"{ckpt}/pre_{k}", state, mesh)
+            dist.barrier()
+            state, metrics = step(state, batch, 12)
+            _state_out(state, f"steps/{k}", out)
+            _metrics_out(metrics, f"steps/{k}", out)
+
+        # dp=1 x mp=2 with the tables row-sharded
+        mp_mcfg, _ = _train_configs(payload, "mp_cfg")
+        m12 = make_mesh(dp=1, mp=2)
+        whole, schedule = t_step.create_train_state(mp_mcfg, tcfg,
+                                                    device="cpu")
+        sh = train_state_shardings(m12, whole)
+        local = t_step.shard_train_state(whole, sh, m12)
+        mp_train = _sub(payload, "mp_train")
+        step = t_step.make_train_step(mp_mcfg, tcfg, schedule,
+                                      _sub(payload, "mp_feat"), "cpu",
+                                      mesh=m12, state_shardings=sh)
+        batch = next(iter(BatchIterator(mp_train, 32, seed=0, mesh=m12)))
+        local, metrics = step(local, batch, 12)
+        _state_out(local, "mp", out)
+        _metrics_out(metrics, "mp", out)
+        save_train_state(f"{ckpt}/mp_step_1", local, m12, sh)
+        # a single-device checkpoint into the row-sharded state
+        fresh, _ = t_step.create_train_state(
+            mp_mcfg, tcfg, generator=torch.Generator().manual_seed(5),
+            device="cpu")
+        template = t_step.shard_train_state(fresh, sh, m12)
+        restored = restore_train_state(str(payload["single_ckpt"]), template,
+                                       m12, sh)
+        _state_out(restored, "restored", out)
+
+    # one dp step from JAX's initial parameters on JAX's draw
+    params, state = _params(payload, "p0/")
+    st0 = t_step.train_state_from(params, state, tcfg)
+    draw = torch.from_numpy(payload["draw"]).to(torch.int32)
+    objective.sample_negatives = lambda gen, log_probs, k: draw
+    step = t_step.make_train_step(mcfg, tcfg, t_step.lr_schedule_fn(tcfg),
+                                  feats, "cpu", mesh=mesh)
+    batch = {k: v[rank * (32 // world):(rank + 1) * (32 // world)]
+             for k, v in _sub(payload, "batch").items()}
+    new, metrics = step(st0, batch, 12)
+    _state_out(new, "jax_step", out)
+    _metrics_out(metrics, "jax_step", out)
+    return out
+
+
 def _main(argv) -> None:
     import torch
     import torch.distributed as dist
